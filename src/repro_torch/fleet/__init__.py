@@ -1,0 +1,16 @@
+"""Fleet-scale FL simulation engine (synchronous single-tier slice).
+
+Batched multi-cell channels (``topology``: orthogonal cells), the
+closed-form trade-off solver batched over cells (``solver``), the
+scheduler's synchronous masks (``scheduler``), the synthetic MLP task
+(``task``) and the round loop (``engine``).
+"""
+
+from repro_torch.fleet.engine import (  # noqa: F401
+    FleetConfig, FleetResult, GeneratorDraws, InjectedDraws, RoundDraws,
+    SimStart, build_simulation, resolve_task, run_fleet)
+from repro_torch.fleet.scheduler import AsyncConfig, ScheduleConfig  # noqa: F401
+from repro_torch.fleet.solver import SolverConfig  # noqa: F401
+from repro_torch.fleet.task import FleetTask, SyntheticMLPTask  # noqa: F401
+from repro_torch.fleet.topology import (  # noqa: F401
+    FleetTopology, OrthogonalCells)

@@ -1,0 +1,77 @@
+"""Carry state across from numpy: params, population, task state, batches.
+
+Converters from numpy copies of the JAX package's objects (or any arrays
+of the same layout) into the port's tensors, and back.  They are what
+lets a test start both packages from the same model, fleet, data and
+per-round draws.  Integer arrays (labels) become int64; float arrays take
+``dtype``.  Like the entry points, ``device=None`` means the card
+(``"cuda"``); pass ``device="cpu"`` for the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.fleet.engine import RoundDraws, SimStart
+from repro_torch.fleet.topology import ClientPopulation
+
+__all__ = ["tensor", "tree_from_numpy", "population_from_numpy",
+           "round_draws_from_numpy", "start_from_numpy", "to_numpy"]
+
+
+def tensor(a, dtype: torch.dtype = torch.float32, device=None
+           ) -> torch.Tensor:
+    """One array -> tensor; integer arrays become int64."""
+    a = np.array(a)  # a writable copy: arrays from JAX are read-only
+    device = resolve_device(device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
+def tree_from_numpy(tree: Mapping, dtype: torch.dtype = torch.float32,
+                    device=None) -> dict:
+    """Nested dicts of arrays -> the same dicts of tensors: params
+    (``{"layer{i}": {"w": (in, out), "b": (out,)}}``), task state
+    (``templates``, ``x_test``, ``y_test``) or cached client batches
+    (``{"x": (n, batch, D), "y": (n, batch)}``)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
+    return tensor(tree, dtype, device)
+
+
+def population_from_numpy(pop: Any, dtype: torch.dtype = torch.float32,
+                          device=None) -> ClientPopulation:
+    """A population with the ``ClientPopulation`` fields (a mapping or an
+    object with those attributes, e.g. the reference's NamedTuple)."""
+    def field(name):
+        return pop[name] if isinstance(pop, Mapping) else getattr(pop, name)
+    return ClientPopulation(*(tensor(field(f), dtype, device)
+                              for f in ClientPopulation._fields))
+
+
+def round_draws_from_numpy(h_up, h_down, u_strag, u_arr,
+                           dtype: torch.dtype = torch.float32,
+                           device=None) -> RoundDraws:
+    """One round's gains and uniforms -> ``RoundDraws``."""
+    return RoundDraws(*(tensor(a, dtype, device)
+                        for a in (h_up, h_down, u_strag, u_arr)))
+
+
+def start_from_numpy(params: Mapping, task_state: Mapping, batches: Mapping,
+                     dtype: torch.dtype = torch.float32,
+                     device=None) -> SimStart:
+    """The model and data side of a run -> ``SimStart``."""
+    return SimStart(*(tree_from_numpy(t, dtype, device)
+                      for t in (params, task_state, batches)))
+
+
+def to_numpy(tree):
+    """Tensors (nested in dicts) -> numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()

@@ -9,6 +9,11 @@ from repro.core.convergence import ConvergenceBound, SmoothnessParams
 from repro.core.tradeoff import TradeoffProblem
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips (with a reason) without one")
+
+
 @pytest.fixture(scope="session")
 def table1_cfg() -> wireless.WirelessConfig:
     """Paper Table I parameters."""

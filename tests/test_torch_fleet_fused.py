@@ -1,0 +1,247 @@
+"""The port's fused pruned-gradient op against the reference's kernels.
+
+The plain version (what runs on the CPU) is held to
+``repro.kernels.fleet_fused.fused_grads_xla`` in float64 at 1e-5 (both
+run the same tile loop; float64 leaves only summation-order noise), and
+in float32 to ``fused_grads_pallas(..., interpret=True)`` — the Pallas
+kernel, run as the reference's own tests run it — at 1e-4 (float32
+reductions in different orders over ~100 rows).  Dims 32->12->6->5 with
+block 8 make every layer's edge tiles ragged; the batch has an
+all-pruned client, zero-weight clients and a client count that is not a
+multiple of the Pallas client tile (8).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fleet_fused as TFF
+
+try:  # the card's machine has no JAX: only the gpu tests run there
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import fleet_fused as JFF
+except ImportError:
+    JFF = None
+needs_jax = pytest.mark.skipif(JFF is None, reason="needs the JAX reference")
+
+BLOCK = 8
+SIZES = (32, 12, 6, 5)
+
+
+def _problem(c=13, batch=8, seed=0, sizes=SIZES):
+    """Numpy params, batch, rates and weights; client 1 keeps nothing."""
+    rng = np.random.default_rng(seed)
+    params = {f"layer{i}": {"w": rng.normal(size=(a, b)) * np.sqrt(2.0 / a),
+                            "b": 0.1 * rng.normal(size=(b,))}
+              for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))}
+    x = rng.normal(size=(c, batch, sizes[0]))
+    y = rng.integers(0, sizes[-1], (c, batch))
+    rho = np.concatenate([[0.0, 0.7], rng.uniform(0, 0.7, c - 2)])
+    w = rng.uniform(0, 50, c)
+    w[[0, c // 2]] = 0.0
+    return params, x, y, rho, w
+
+
+def _keeps_np(params, rho):
+    """Reference keeps (float32), with client 1 pruned to nothing."""
+    p = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), params)
+    keeps = JFF.layer_keeps(JFF.layer_norm_states(p, BLOCK),
+                            jnp.asarray(rho, jnp.float32))
+    keeps = [np.asarray(k).copy() for k in keeps]
+    for k in keeps:
+        k[1] = 0.0
+    return keeps
+
+
+def _torch_tree(tree, dtype):
+    return {k: {n: torch.as_tensor(v, dtype=dtype) for n, v in d.items()}
+            for k, d in tree.items()}
+
+
+def _run_torch(params, x, y, keeps, w, dtype):
+    return TFF.fused_fleet_grads(
+        _torch_tree(params, dtype), torch.as_tensor(x, dtype=dtype),
+        torch.as_tensor(y), [torch.as_tensor(k) for k in keeps],
+        torch.as_tensor(w, dtype=dtype), BLOCK)
+
+
+def _assert_grads_close(got, ref, rtol, atol):
+    for name in ref:
+        for leaf in ("w", "b"):
+            np.testing.assert_allclose(got[name][leaf].numpy(),
+                                       np.asarray(ref[name][leaf]),
+                                       rtol=rtol, atol=atol,
+                                       err_msg=f"{name}/{leaf}")
+
+
+@needs_jax
+@pytest.mark.parametrize("sizes", [SIZES, (32, 12, 5)])
+def test_plain_matches_fused_grads_xla_in_float64(sizes):
+    params, x, y, rho, w = _problem(sizes=sizes)
+    keeps = _keeps_np(params, rho)
+    with jax.enable_x64(True):
+        g_ref, l_ref = JFF.fused_grads_xla(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(x), jnp.asarray(y),
+            [jnp.asarray(k) for k in keeps], jnp.asarray(w), BLOCK)
+        g_ref = jax.tree.map(np.asarray, g_ref)
+        l_ref = np.asarray(l_ref)
+    g, losses = _run_torch(params, x, y, keeps, w, torch.float64)
+    assert losses.shape == (x.shape[0],)
+    _assert_grads_close(g, g_ref, rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(losses.numpy(), l_ref, rtol=1e-5)
+
+
+@needs_jax
+def test_plain_matches_pallas_interpret_in_float32():
+    params, x, y, rho, w = _problem(c=11)
+    keeps = _keeps_np(params, rho)
+    p32 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), params)
+    g_ref, l_ref = JFF.fused_grads_pallas(
+        p32, jnp.asarray(x, jnp.float32), jnp.asarray(y),
+        [jnp.asarray(k) for k in keeps], jnp.asarray(w, jnp.float32), BLOCK,
+        interpret=True)
+    g, losses = _run_torch(params, x, y, keeps, w, torch.float32)
+    _assert_grads_close(g, jax.tree.map(np.asarray, g_ref), rtol=1e-4,
+                        atol=1e-4)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(l_ref), rtol=1e-4)
+
+
+@needs_jax
+def test_plain_matches_vmap_autodiff_oracle():
+    """Against per-client autodiff on the masked model (the reference's
+    oracle), at float64: keeps built from rho by the reference."""
+    params, x, y, rho, w = _problem(c=9, seed=3)
+    with jax.enable_x64(True):
+        jp = jax.tree.map(jnp.asarray, params)
+        g_ref, l_ref = JFF.reference_grads(jp, jnp.asarray(x), jnp.asarray(y),
+                                           jnp.asarray(rho), jnp.asarray(w),
+                                           BLOCK)
+        keeps = [np.array(k) for k in JFF.layer_keeps(
+            JFF.layer_norm_states(jp, BLOCK), jnp.asarray(rho))]
+        g_ref = jax.tree.map(np.asarray, g_ref)
+    g, losses = _run_torch(params, x, y, keeps, w, torch.float64)
+    _assert_grads_close(g, g_ref, rtol=1e-5, atol=1e-12)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(l_ref), rtol=1e-5)
+
+
+@needs_jax
+def test_all_pruned_and_zero_weight_clients():
+    params, x, y, rho, w = _problem()
+    keeps = _keeps_np(params, rho)
+    g, _ = _run_torch(params, x, y, keeps, w, torch.float64)
+    # dropping the all-pruned client changes no weight gradient
+    w1 = w.copy()
+    w1[1] = 0.0
+    g1, _ = _run_torch(params, x, y, keeps, w1, torch.float64)
+    for name in g:
+        torch.testing.assert_close(g[name]["w"], g1[name]["w"])
+    # zero-weight clients contribute nothing at all
+    keep_idx = np.flatnonzero(w > 0)
+    g2, _ = _run_torch(params, x[keep_idx], y[keep_idx],
+                       [k[keep_idx] for k in keeps], w[keep_idx],
+                       torch.float64)
+    for name in g:
+        for leaf in ("w", "b"):
+            torch.testing.assert_close(g[name][leaf], g2[name][leaf])
+
+
+@needs_jax
+def test_cpu_tensors_take_the_plain_version():
+    params, x, y, rho, w = _problem(c=4)
+    keeps = _keeps_np(params, rho)
+    before = TFF.fused_fleet_grads.launches
+    g, l = _run_torch(params, x, y, keeps, w, torch.float32)
+    g2, l2 = TFF.fused_grads_plain(
+        _torch_tree(params, torch.float32), torch.as_tensor(x).float(),
+        torch.as_tensor(y), [torch.as_tensor(k) for k in keeps],
+        torch.as_tensor(w).float(), BLOCK)
+    assert TFF.fused_fleet_grads.launches == before
+    torch.testing.assert_close(l, l2, rtol=0, atol=0)
+    torch.testing.assert_close(g, g2, rtol=0, atol=0)
+
+
+def _operands(c, dev):
+    """Wrapper keyword arguments for ``_problem(c)`` on ``dev`` (float32;
+    keeps from the port's own ``layer_keeps``)."""
+    params, x, y, rho, w = _problem(c=c)
+    tp = {k: {n: t.to(dev) for n, t in d.items()}
+          for k, d in _torch_tree(params, torch.float32).items()}
+    keeps = TFF.layer_keeps(TFF.layer_norm_states(tp, BLOCK),
+                            torch.as_tensor(rho, dtype=torch.float32,
+                                            device=dev))
+    return dict(params=tp, x=torch.as_tensor(x, dtype=torch.float32,
+                                             device=dev),
+                y=torch.as_tensor(y, device=dev), keeps=keeps,
+                weights=torch.as_tensor(w, dtype=torch.float32, device=dev),
+                block=BLOCK)
+
+
+_MISSHAPEN = {
+    "keeps_tile_grid": lambda a: {
+        **a, "keeps": [a["keeps"][0][:, :-1]] + a["keeps"][1:]},
+    "keeps_clients": lambda a: {**a, "keeps": [k[:-1] for k in a["keeps"]]},
+    "keeps_layers": lambda a: {**a, "keeps": a["keeps"][:-1]},
+    "weights": lambda a: {**a, "weights": a["weights"][:-1]},
+    "y": lambda a: {**a, "y": a["y"].reshape(-1)},
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MISSHAPEN))
+def test_misshapen_operands_raise(case):
+    """Operands the kernel would read out of bounds are refused before any
+    launch, on the CPU as on the card."""
+    before = TFF.fused_fleet_grads.launches
+    with pytest.raises(ValueError):
+        TFF.fused_fleet_grads(**_MISSHAPEN[case](_operands(9, "cpu")))
+    assert TFF.fused_fleet_grads.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_MISSHAPEN) + ["y_on_cpu"])
+def test_cuda_kernel_refuses_bad_operands_on_gpu(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _operands(9, "cuda")
+    bad = ({**args, "y": args["y"].cpu()} if case == "y_on_cpu"
+           else _MISSHAPEN[case](args))
+    before = TFF.fused_fleet_grads.launches
+    with pytest.raises(ValueError):
+        TFF.fused_fleet_grads(**bad)
+    assert TFF.fused_fleet_grads.launches == before
+    TFF.fused_fleet_grads(**args)  # the context is still sound
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [13, 64, 1001])
+def test_cuda_kernel_matches_plain_on_gpu(c):
+    """The CUDA kernel against the plain version on the card (float32;
+    1e-4: different float32 summation orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    params, x, y, rho, w = _problem(c=c, sizes=(784, 60, 20, 10))
+    dev = "cuda"
+    tp = {k: {n: t.to(dev) for n, t in d.items()}
+          for k, d in _torch_tree(params, torch.float32).items()}
+    keeps = TFF.layer_keeps(TFF.layer_norm_states(tp, BLOCK),
+                            torch.as_tensor(rho, dtype=torch.float32,
+                                            device=dev))
+    for k in keeps:  # client 1 keeps nothing
+        k[1] = 0.0
+    args = (tp, torch.as_tensor(x, dtype=torch.float32, device=dev),
+            torch.as_tensor(y, device=dev), keeps,
+            torch.as_tensor(w, dtype=torch.float32, device=dev), BLOCK)
+    before = TFF.fused_fleet_grads.launches
+    g, losses = TFF.fused_fleet_grads(*args)
+    torch.cuda.synchronize()
+    assert TFF.fused_fleet_grads.launches == before + 1
+    g_ref, l_ref = TFF.fused_grads_plain(*args)
+    torch.testing.assert_close(losses, l_ref, rtol=1e-4, atol=1e-5)
+    for name in g:
+        for leaf in ("w", "b"):
+            scale = float(g_ref[name][leaf].abs().max()) + 1e-6
+            torch.testing.assert_close(g[name][leaf], g_ref[name][leaf],
+                                       rtol=1e-4, atol=1e-4 * scale)
+    with pytest.raises(TypeError):
+        TFF.fused_fleet_grads(args[0], args[1].double(), *args[2:])
