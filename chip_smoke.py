@@ -7,13 +7,27 @@ Phases (any failure exits non-zero and prints no result line):
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — nvcc builds every CUDA kernel from src/repro_torch/kernels/csrc;
   3. kernels — each kernel against its plain PyTorch version on the card, at
-               the main path's shapes, with errors and warm CUDA-event times;
+               the main paths' shapes (the fleet round's, and smollm-135m's
+               for the block-sparse matmul, forward and transposed, decode
+               attention and flash prefill), with errors, bounds and warm
+               device times from torch.profiler (the kernel's own launches,
+               the plain version's and, where one exists, a library call's
+               device ops), beside the kernel call's CUDA-event time, which
+               includes the host's dispatch (``call_ms``);
   4. main    — 5 synchronous fleet rounds: 10,000 clients (100 x 100 cells),
                the paper's 784-60-20-10 DNN, kernel="fused"; per-round
                metrics and wall time, launch counts (each > 0), and a second
                run that must give bitwise-identical losses;
   5. card vs CPU — a small fleet from the same numpy draws on the CPU (plain
-               versions) and on the card (kernels), compared at 1e-4.
+               versions) and on the card (kernels), compared at 1e-4;
+  6. serve   — smollm-135m at full width (random weights from a seed,
+               bfloat16, pruned at rho = 0.5 on its tile grid) through
+               ServeEngine: 64 requests x (32 prompt + 32 new tokens) on 32
+               slots by generate and by generate_prefilled, with launch
+               counts, timings and a profiled decode step; tokens must be
+               equal across 32 and 8 slots, to a per-request host loop and
+               (up to near-ties) between the two modes, and a 2-layer
+               full-width copy must give the same logits on card and CPU.
 The line before the last is the kernels JSON; the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
@@ -42,11 +56,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms, CUDA events around ``iters`` warm
-    calls."""
+def cuda_ms(fn, iters: int) -> float:
+    """Mean time of one ``fn`` call in ms, CUDA events around ``iters`` warm
+    calls (the host's dispatch between launches included)."""
     import torch
-    for _ in range(warmup):
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -57,6 +71,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernels: tuple = ()) -> float:
+    """Mean device time of one ``fn`` call in ms: torch.profiler's self
+    device time over ``iters`` warm calls, summed over the device kernels
+    whose name holds one of ``kernels`` (every device op when empty).
+    Unlike ``cuda_ms`` it leaves out the host's dispatch between launches.
+    Where the profiler records no device time it falls back to
+    ``cuda_ms`` and says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (not kernels or any(k in e.key for k in kernels)))
+    if total_us <= 0:
+        log(f"  profiler recorded no device time for "
+            f"{kernels or 'the call'}: CUDA-event time instead")
+        return cuda_ms(fn, iters)
+    return total_us / iters / 1e3
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -85,22 +125,30 @@ def check_tile_norms(params, card: str) -> dict:
         if rel > TOL:
             raise AssertionError(f"tile_norms disagrees at {tuple(w.shape)}")
     # one round's worth: the three layers
-    ms = cuda_ms(lambda: [BN.tile_norms(w, BLOCK, BLOCK) for w in ws], 50)
-    plain_ms = cuda_ms(lambda: [BN.tile_norms_plain(w, BLOCK, BLOCK)
-                                for w in ws], 50)
+    def call():
+        return [BN.tile_norms(w, BLOCK, BLOCK) for w in ws]
+    ms = device_ms(call, 50, ("tile_sqnorms_kernel",))
+    call_ms = cuda_ms(call, 50)
+    plain_ms = device_ms(lambda: [BN.tile_norms_plain(w, BLOCK, BLOCK)
+                                  for w in ws], 50)
     n_in = sum(w.numel() for w in ws)
     n_out = sum(-(-w.shape[0] // BLOCK) * -(-w.shape[1] // BLOCK) for w in ws)
     t_bytes = (n_in + n_out) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * n_in / F32_FLOPS * 1e3
-    log(f"  tile_norms x3 layers: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"bound {max(t_bytes, t_ops):.6f} ms [{card}]")
+    log(f"  tile_norms x3 layers: {ms:.4f} ms kernel on the device "
+        f"({call_ms:.4f} ms a call, dispatch included), {plain_ms:.4f} ms "
+        f"plain, bound {max(t_bytes, t_ops):.6f} ms [{card}]")
     return dict(name="tile_norms", route="cuda",
                 source="src/repro_torch/kernels/csrc/block_norms.cu",
                 replaces="src/repro/kernels/block_norms.py:24",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
+
+
+FUSED_KERNELS = ("masked_rows_kernel", "loss_kernel", "dw_partial_kernel",
+                 "reduce_segments_kernel")
 
 
 def fused_bound_ms(params, x, keeps) -> tuple[float, str]:
@@ -166,16 +214,254 @@ def check_fused(params, data, card: str) -> dict:
         if rel > TOL or not torch.isfinite(losses).all():
             raise AssertionError(f"fused kernel disagrees: {name}")
     args = cases[1][1]
-    ms = cuda_ms(lambda: FF.fused_fleet_grads(*args), 10)
-    plain_ms = cuda_ms(lambda: FF.fused_grads_plain(*args), 3, warmup=1)
+    ms = device_ms(lambda: FF.fused_fleet_grads(*args), 10, FUSED_KERNELS)
+    call_ms = cuda_ms(lambda: FF.fused_fleet_grads(*args), 10)
+    plain_ms = device_ms(lambda: FF.fused_grads_plain(*args), 3)
     bound, bound_by = fused_bound_ms(params, args[1], args[3])
-    log(f"  fused_fleet_grads (C={c}, rho~U[0,0.7]): {ms:.3f} ms kernel, "
-        f"{plain_ms:.3f} ms plain, bound {bound:.4f} ms ({bound_by}) [{card}]")
+    log(f"  fused_fleet_grads (C={c}, rho~U[0,0.7]): {ms:.3f} ms kernels on "
+        f"the device ({call_ms:.3f} ms a call), {plain_ms:.3f} ms plain, "
+        f"bound {bound:.4f} ms ({bound_by}) [{card}]")
     return dict(name="fleet_fused_grads", route="cuda",
                 source="src/repro_torch/kernels/csrc/fleet_fused.cu",
                 replaces="src/repro/kernels/fleet_fused.py:331",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=None)
+                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (serving kernels): smollm-135m's shapes
+# ---------------------------------------------------------------------------
+
+# every distinct (K, N, bk, bn) of smollm-135m's linears on its tile grid
+# (auto_tile_grid, target_tiles=8): wq/wo, wk/wv, w_in/w_gate, w_out and
+# the tied unembedding
+SERVE_LINEARS = {"wq": (576, 576, 72, 72), "wk": (576, 192, 72, 24),
+                 "w_in": (576, 1536, 72, 192), "w_out": (1536, 576, 192, 72),
+                 "unembed": (576, 49152, 72, 6144)}
+# one decode step's linears: 30 layers x (wq, wk, wv, wo, w_in, w_gate,
+# w_out) and the unembedding
+STEP_LINEARS = ["wq", "wk", "wk", "wq", "w_in", "w_in", "w_out"]
+SERVE_LAYERS, SERVE_KV, SERVE_GROUP, SERVE_HD = 30, 3, 3, 64
+SERVE_BATCH, SERVE_PAGE, SERVE_PROMPT, SERVE_NEW = 32, 128, 32, 32
+
+
+def random_keep(kdim, ndim, bk, bn, rho, g):
+    import torch
+    return (torch.rand(-(-kdim // bk), -(-ndim // bn), generator=g,
+                       device="cuda") >= rho).float()
+
+
+def kept_elements(keep, kdim, ndim, bk, bn) -> float:
+    """Real (unpadded) W elements under kept tiles."""
+    import torch
+    rows = torch.tensor([min(bk, kdim - s) for s in range(0, kdim, bk)],
+                        device=keep.device, dtype=torch.float64)
+    cols = torch.tensor([min(bn, ndim - s) for s in range(0, ndim, bn)],
+                        device=keep.device, dtype=torch.float64)
+    return float(torch.einsum("tn,t,n->", (keep != 0).double(), rows, cols))
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The larger of the bytes at the HBM rate and the float32 operations
+    at the peak rate, in ms, and which of the two it is."""
+    t_ops = ops / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def matmul_bound_ms(cases, transpose) -> tuple[float, str]:
+    """Least time for these products: kept-tile MACs at the float32 peak
+    against x, the kept W bytes, the mask and y at the HBM rate."""
+    ops = nbytes = 0.0
+    for x, w, keep, bk, bn in cases:
+        kdim, ndim = w.shape
+        kept = kept_elements(keep, kdim, ndim, bk, bn)
+        m = x.shape[0]
+        ops += 2.0 * m * kept
+        nbytes += 4.0 * (x.numel() + kept + keep.numel()
+                         + m * (kdim if transpose else ndim))
+    return bound_ms(nbytes, ops)
+
+
+def check_matmul(card: str, transpose: bool) -> dict:
+    """Every distinct linear shape at M in {1, 32, 1024} and rho in
+    {0, 0.5, 1} against the plain version; then one decode step's worth
+    of products (30 layers + unembedding, B = 32, rho = 0.5) timed."""
+    import torch
+    from repro_torch.kernels import block_sparse_matmul as BSM
+    fn = BSM.block_sparse_matmul_t if transpose else BSM.block_sparse_matmul
+    name = "block_sparse_matmul_t" if transpose else "block_sparse_matmul"
+    g = torch.Generator(device="cuda").manual_seed(11 + transpose)
+    worst = 0.0
+    for lin, (kdim, ndim, bk, bn) in SERVE_LINEARS.items():
+        w = torch.randn(kdim, ndim, generator=g, device="cuda")
+        shape_diff = shape_rel = 0.0
+        for m in (1, 32, 1024):
+            x = torch.randn(m, kdim if not transpose else ndim, generator=g,
+                            device="cuda")
+            for rho in (0.0, 0.5, 1.0):
+                keep = random_keep(kdim, ndim, bk, bn, rho, g)
+                got = fn(x, w, keep, bk, bn)
+                ref = BSM.block_sparse_matmul_plain(x, w, keep, bk, bn,
+                                                    transpose)
+                torch.cuda.synchronize()
+                diff, rel = rel_err(got, ref)
+                shape_diff = max(shape_diff, diff)
+                shape_rel = max(shape_rel, rel)
+                if rel > TOL:
+                    raise AssertionError(
+                        f"{name} disagrees: {lin} M={m} rho={rho} "
+                        f"rel={rel:.3e}")
+        worst = max(worst, shape_diff)
+        log(f"  {name} {lin} ({kdim}x{ndim}, tiles {bk}x{bn}), M in "
+            f"(1, 32, 1024) x rho in (0, 0.5, 1): max_abs_err={shape_diff:.3e}"
+            f" rel={shape_rel:.3e} (tol {TOL})")
+    # one decode step's products at B = 32, rho = 0.5
+    cases = []
+    for lin in STEP_LINEARS * SERVE_LAYERS + ["unembed"]:
+        kdim, ndim, bk, bn = SERVE_LINEARS[lin]
+        w = torch.randn(kdim, ndim, generator=g, device="cuda")
+        x = torch.randn(SERVE_BATCH, ndim if transpose else kdim,
+                        generator=g, device="cuda")
+        cases.append((x, w, random_keep(kdim, ndim, bk, bn, 0.5, g), bk, bn))
+    masked = [torch.where(BSM.expand_mask(k, w.shape, bk, bn), w, 0.0)
+              for _, w, k, bk, bn in cases]
+    ms = device_ms(lambda: [fn(*c) for c in cases], 10, ("bsmm_kernel",))
+    call_ms = cuda_ms(lambda: [fn(*c) for c in cases], 10)
+    plain_ms = device_ms(lambda: [BSM.block_sparse_matmul_plain(*c, transpose)
+                                  for c in cases], 5)
+    lib_ms = device_ms(lambda: [torch.matmul(c[0], wm.T if transpose else wm)
+                                for c, wm in zip(cases, masked)], 10)
+    bound, bound_by = matmul_bound_ms(cases, transpose)
+    log(f"  {name} one decode step ({len(cases)} products, B="
+        f"{SERVE_BATCH}, rho=0.5): {ms:.4f} ms kernel on the device "
+        f"({call_ms:.4f} ms a call), {plain_ms:.4f} ms plain, {lib_ms:.4f} "
+        f"ms torch.matmul on masked W, bound "
+        f"{bound:.4f} ms ({bound_by}) [{card}]")
+    return dict(name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
+                replaces="src/repro/kernels/block_sparse_matmul.py:"
+                         + ("50" if transpose else "74"),
+                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+def sdpa(q, k, v, valid):
+    """The library call: scaled_dot_product_attention on (B, H, S, hd)
+    layouts with the boolean validity mask and GQA (the timed cases have
+    every head live, so no head mask is applied after)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=valid,
+                                          enable_gqa=True)
+
+
+def check_decode(card: str) -> dict:
+    """B = 32 against caches of 128 and 2048, ragged pos with 0 and S - 1,
+    a dead head, a window, rows whose window lies past the cache; timed at
+    the serving shape (S = 128, pos as the engine's 32 + 32 requests
+    reach)."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    g = torch.Generator(device="cuda").manual_seed(21)
+    b, h = SERVE_BATCH, SERVE_KV * SERVE_GROUP
+
+    def inputs(s, pos_hi):
+        q = torch.randn(b, h, SERVE_HD, generator=g, device="cuda")
+        k = torch.randn(b, s, SERVE_KV, SERVE_HD, generator=g, device="cuda")
+        v = torch.randn(b, s, SERVE_KV, SERVE_HD, generator=g, device="cuda")
+        pos = torch.randint(0, pos_hi, (b,), generator=g, device="cuda")
+        pos[0], pos[1] = 0, pos_hi - 1
+        return q, k, v, pos
+
+    dead = torch.tensor([1.0, 0.0, 1.0], device="cuda")
+    worst = 0.0
+    # the last case puts some rows' windows past the cache's end: no valid
+    # key, zeros out
+    for s, window, hm, pos_hi in [(128, None, None, 128),
+                                  (128, None, dead, 128),
+                                  (2048, None, None, 2048),
+                                  (2048, 256, dead, 2048),
+                                  (128, 16, None, 200)]:
+        q, k, v, pos = inputs(s, pos_hi)
+        got = DA.decode_attention(q, k, v, pos, window, hm)
+        ref = DA.decode_attention_plain(q, k, v, pos, window, hm)
+        torch.cuda.synchronize()
+        diff, rel = rel_err(got, ref)
+        worst = max(worst, diff)
+        log(f"  decode_attention S={s} window={window} head_mask="
+            f"{None if hm is None else hm.tolist()}: max_abs_err={diff:.3e} "
+            f"rel={rel:.3e} (tol {TOL})")
+        if rel > TOL:
+            raise AssertionError("decode_attention disagrees")
+    q, k, v, pos = inputs(SERVE_PAGE, SERVE_PROMPT + SERVE_NEW - 1)
+    ms = device_ms(lambda: DA.decode_attention(q, k, v, pos), 50,
+                   ("decode_kernel",))
+    call_ms = cuda_ms(lambda: DA.decode_attention(q, k, v, pos), 50)
+    plain_ms = device_ms(lambda: DA.decode_attention_plain(q, k, v, pos), 20)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    valid = (torch.arange(SERVE_PAGE, device="cuda")[None, :]
+             <= pos[:, None])[:, None, None, :]
+    lib_err = rel_err(sdpa(qs, ks, vs, valid)[:, :, 0],
+                      DA.decode_attention_plain(q, k, v, pos))[1]
+    lib_ms = device_ms(lambda: sdpa(qs, ks, vs, valid), 50)
+    keys = float((pos + 1).sum()) * SERVE_KV
+    nbytes = 4.0 * (2 * q.numel() + 2 * keys * SERVE_HD) + 4.0 * b
+    ops = 4.0 * keys * SERVE_GROUP * SERVE_HD
+    bound, bound_by = bound_ms(nbytes, ops)
+    log(f"  decode_attention (B={b}, S={SERVE_PAGE}, pos < "
+        f"{SERVE_PROMPT + SERVE_NEW - 1}): {ms:.4f} ms kernel on the device "
+        f"({call_ms:.4f} ms a call), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa (rel err vs plain "
+        f"{lib_err:.1e}), bound {bound:.6f} ms ({bound_by}) [{card}]")
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:88",
+                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+def check_prefill(card: str) -> dict:
+    """B = 32, S = 32 causal; a ragged t_valid and a dead head; timed at
+    the serving wave (B = 32, S = T = 32, causal, all heads live)."""
+    import torch
+    from repro_torch.kernels import flash_prefill as FP
+    g = torch.Generator(device="cuda").manual_seed(31)
+    b, s, h = SERVE_BATCH, SERVE_PROMPT, SERVE_KV * SERVE_GROUP
+    q = torch.randn(b, s, h, SERVE_HD, generator=g, device="cuda")
+    k = torch.randn(b, s, SERVE_KV, SERVE_HD, generator=g, device="cuda")
+    v = torch.randn(b, s, SERVE_KV, SERVE_HD, generator=g, device="cuda")
+    dead = torch.tensor([1.0, 0.0, 1.0], device="cuda")
+    worst = 0.0
+    for t_valid, hm in [(None, None), (20, None), (None, dead)]:
+        got = FP.flash_prefill(q, k, v, True, None, t_valid, hm)
+        ref = FP.flash_prefill_plain(q, k, v, True, None, t_valid, hm)
+        torch.cuda.synchronize()
+        diff, rel = rel_err(got, ref)
+        worst = max(worst, diff)
+        log(f"  flash_prefill B={b} S={s} t_valid={t_valid} head_mask="
+            f"{None if hm is None else hm.tolist()}: max_abs_err={diff:.3e} "
+            f"rel={rel:.3e} (tol {TOL})")
+        if rel > TOL:
+            raise AssertionError("flash_prefill disagrees")
+    ms = device_ms(lambda: FP.flash_prefill(q, k, v), 50, ("prefill_kernel",))
+    call_ms = cuda_ms(lambda: FP.flash_prefill(q, k, v), 50)
+    plain_ms = device_ms(lambda: FP.flash_prefill_plain(q, k, v), 20)
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    valid = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    lib_err = rel_err(sdpa(qs, ks, vs, valid).transpose(1, 2),
+                      FP.flash_prefill_plain(q, k, v))[1]
+    lib_ms = device_ms(lambda: sdpa(qs, ks, vs, valid), 50)
+    pairs = b * SERVE_KV * s * (s + 1) / 2
+    nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel())
+    ops = 4.0 * pairs * SERVE_GROUP * SERVE_HD
+    bound, bound_by = bound_ms(nbytes, ops)
+    log(f"  flash_prefill (B={b}, S=T={s}, causal): {ms:.4f} ms kernel on the "
+        f"device ({call_ms:.4f} ms a call), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa (rel err vs plain "
+        f"{lib_err:.1e}), bound {bound:.6f} ms ({bound_by}) [{card}]")
+    return dict(name="flash_prefill", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+                replaces="src/repro/kernels/flash_prefill.py:102",
+                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -249,25 +535,30 @@ def run_main_path(card: str) -> tuple[list, dict]:
 
 
 def profile_round(sim, carry, r: int, card: str) -> None:
-    """One more (warm) round under torch.profiler: device busy share of the
-    round's wall time and the device time by kernel.  A measurement only:
-    if the profiler records no device time it says "not measured"."""
+    """One more (warm) round under torch.profiler."""
+    profile_device(lambda: sim.step(carry, r), "round", card)
+
+
+def profile_device(fn, what: str, card: str) -> None:
+    """``fn`` once under torch.profiler: device busy share of its wall time
+    and the device time by kernel.  A measurement only: if the profiler
+    records no device time it says "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.step(carry, r)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
-        log("  profiled round: device time not measured (no CUDA events)")
+        log(f"  profiled {what}: device time not measured (no CUDA events)")
         return
-    log(f"  profiled round: wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"  profiled {what}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e.count for e in kernels)} device ops [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -335,6 +626,245 @@ def card_vs_cpu(card: str) -> None:
         raise AssertionError("card and CPU runs disagree")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: serve smollm-135m
+# ---------------------------------------------------------------------------
+
+SERVE_SEED, SERVE_REQUESTS, SERVE_RHO = 2026, 64, 0.5
+
+
+def serve_counters():
+    from repro_torch.kernels import block_norms as BN
+    from repro_torch.kernels import block_sparse_matmul as BSM
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_prefill as FP
+    return {"block_sparse_matmul": BSM.block_sparse_matmul,
+            "block_sparse_matmul_t": BSM.block_sparse_matmul_t,
+            "decode_attention": DA.decode_attention,
+            "flash_prefill": FP.flash_prefill, "tile_norms": BN.tile_norms}
+
+
+def achieved_rho(bundle) -> float:
+    """Pruned fraction of the prunable leaves' elements."""
+    from repro_torch.core import pruning
+    kept = total = 0
+    for leaf, mask in zip(pruning.flatten(bundle.params),
+                          pruning.flatten(bundle.masks())):
+        if leaf.ndim >= 2:
+            kept += int(mask.sum())
+            total += mask.numel()
+    return 1.0 - kept / total
+
+
+def host_loop(model, prompts, card_dev) -> list:
+    """Per-request greedy decode through ``decode_step`` at batch 1."""
+    import torch
+    out = []
+    for row in prompts:
+        caches = model.init_caches(1, SERVE_PAGE)
+        gen = []
+        for t in range(SERVE_PROMPT + SERVE_NEW - 1):
+            tok = int(row[t]) if t < SERVE_PROMPT else gen[-1]
+            lg, caches = model.decode_step(
+                model.arrays, torch.full((1, 1), tok, device=card_dev),
+                caches, torch.full((1,), t, device=card_dev))
+            if t >= SERVE_PROMPT - 1:
+                gen.append(int(torch.argmax(lg, -1)[0]))
+        out.append(gen)
+    return out
+
+
+def wave_ties(tokens_cb, tokens_wave, ref_logits) -> int:
+    """Requests where wave mode first departs from continuous batching;
+    each departure must sit on a near-tie of the reference's logits (top-2
+    gap under 1e-4 of the logit scale).  Returns their number."""
+    import numpy as np
+    ties = 0
+    for r in range(tokens_cb.shape[0]):
+        diff = np.nonzero(tokens_cb[r] != tokens_wave[r])[0]
+        if diff.size == 0:
+            continue
+        lg = ref_logits[r, diff[0]]
+        top2 = np.sort(lg)[-2:]
+        gap, scale = float(top2[1] - top2[0]), float(np.abs(lg).max())
+        if gap >= 1e-4 * scale:
+            raise AssertionError(
+                f"wave mode differs from generate at request {r}, token "
+                f"{diff[0]}: top-2 gap {gap:.3e} of scale {scale:.3e}")
+        ties += 1
+    return ties
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """Random weights of ``cfg``'s shapes, drawn with numpy: norm scales 1,
+    embedding N(0, 0.02^2), matrices N(0, 1/fan_in) (the init's scales)."""
+    import numpy as np
+    from repro_torch.core import pruning
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(seed)
+    like = M.init_params(cfg, None)
+    leaves = []
+    for leaf in pruning.flatten(like):
+        shape = tuple(leaf.shape)
+        if leaf.ndim == 2 and shape == (cfg.vocab_size, cfg.d_model):
+            leaves.append(rng.normal(size=shape).astype(np.float32) * 0.02)
+        elif leaf.ndim >= 3:
+            leaves.append(rng.normal(size=shape).astype(np.float32)
+                          / np.sqrt(shape[-2]))
+        else:
+            leaves.append(np.ones(shape, np.float32))
+    return pruning.unflatten(like, leaves)
+
+
+def card_vs_cpu_serve(cfg, card: str) -> None:
+    """A 2-layer, full-width copy (depth cut only) from the same numpy
+    weights and keeps on the card (kernels) and on the CPU (plain
+    versions): decode and prefill logits within 1e-4."""
+    import types
+    import numpy as np
+    import torch
+    from repro_torch import weights
+    from repro_torch.configs.base import BlockSpec, StageSpec
+    from repro_torch.fleet.task import TransformerTask
+    from repro_torch.serve import SparseModel, make_bundle
+
+    cfg2 = cfg.replace(stages=(StageSpec(2, (BlockSpec("attn", "mlp"),)),),
+                       param_dtype="float32")
+    task = TransformerTask(arch=cfg2)
+    params = numpy_params(cfg2, SERVE_SEED + 1)
+    bundle = make_bundle(task, weights.tree_from_numpy(params, device="cpu"),
+                         SERVE_RHO)
+    as_numpy = types.SimpleNamespace(
+        params=params, keeps=[None if k is None else k.numpy()
+                              for k in bundle.keeps],
+        grid=bundle.grid, rho=bundle.rho)
+    toks = np.random.RandomState(SERVE_SEED + 2).randint(
+        0, cfg.vocab_size, (4, 8))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        model = SparseModel(cfg2, weights.bundle_from_numpy(as_numpy,
+                                                            device=dev),
+                            device=dev)
+        caches = model.init_caches(4, 16)
+        outs = []
+        for i in range(toks.shape[1]):
+            lg, caches = model.decode_step(
+                model.arrays, torch.as_tensor(toks[:, i:i + 1], device=dev),
+                caches, torch.full((4,), i, device=dev))
+            outs.append(lg.cpu())
+        lp, _ = model.prefill(model.arrays, torch.as_tensor(toks, device=dev),
+                              16)
+        logits[dev] = (torch.stack(outs, 1), lp.cpu())
+    for what, a, b in zip(("decode", "prefill"), logits["cuda"],
+                          logits["cpu"]):
+        diff, rel = rel_err(a, b)
+        log(f"  2-layer full-width card vs CPU {what} logits "
+            f"{tuple(a.shape)}: max_abs_err={diff:.3e} rel={rel:.3e} "
+            f"(tol {TOL}) [{card}]")
+        if rel > TOL:
+            raise AssertionError(f"card and CPU {what} logits disagree")
+
+
+def run_serve(card: str) -> dict:
+    """Serve smollm-135m at full width; returns the serve kernels' launch
+    counts over bundling, generate and generate_prefilled."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fleet.task import TransformerTask
+    from repro_torch.serve import (ServeConfig, ServeEngine, SparseModel,
+                                   make_bundle)
+
+    cfg = get_config("smollm-135m")
+    task = TransformerTask(arch=cfg)
+    t0 = time.perf_counter()
+    params = task.init_params(
+        torch.Generator(device="cuda").manual_seed(SERVE_SEED))
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, params {cfg.param_dtype} "
+        f"drawn in {time.perf_counter() - t0:.2f} s")
+    prompts = np.random.RandomState(SERVE_SEED).randint(
+        0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+    serve_cfg = ServeConfig(max_slots=SERVE_BATCH, page_len=SERVE_PAGE,
+                            max_new=SERVE_NEW)
+
+    counters = serve_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    bundle = make_bundle(task, params, SERVE_RHO)
+    torch.cuda.synchronize()
+    t_bundle = time.perf_counter() - t0
+    model = SparseModel(cfg, bundle)
+    engine = ServeEngine(model, serve_cfg)
+    t0 = time.perf_counter()
+    tokens_cb = engine.generate(prompts)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens_wave = engine.generate_prefilled(prompts)
+    t_wave = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+
+    live = np.stack([p["head_mask"] for p in model.layers])
+    steps = -(-SERVE_REQUESTS // SERVE_BATCH) * (SERVE_PROMPT + SERVE_NEW - 1)
+    log(f"  bundle (tile norms + keeps at rho={SERVE_RHO}) {t_bundle:.2f} s;"
+        f" achieved rho {achieved_rho(bundle):.4f}; live KV heads "
+        f"{int(live.sum())}/{live.size} [{card}]")
+    log(f"  generate: {SERVE_REQUESTS} requests x ({SERVE_PROMPT} prompt + "
+        f"{SERVE_NEW} new), {SERVE_BATCH} slots: {t_gen:.2f} s, {steps} "
+        f"steps, {t_gen / steps * 1e3:.2f} ms per step, "
+        f"{SERVE_REQUESTS * SERVE_NEW / t_gen:.1f} tokens/s "
+        f"({SERVE_BATCH * steps / t_gen:.1f} slot-steps/s) [{card}]")
+    waves = -(-SERVE_REQUESTS // SERVE_BATCH)
+    batch = torch.as_tensor(prompts[:SERVE_BATCH], dtype=torch.long,
+                            device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(model.arrays, batch, SERVE_PAGE)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    log(f"  generate_prefilled: {waves} waves in {t_wave:.2f} s; one "
+        f"prefill wave ({SERVE_BATCH} x {SERVE_PROMPT}) {t_pre * 1e3:.2f} ms;"
+        f" {SERVE_REQUESTS * SERVE_NEW / t_wave:.1f} tokens/s [{card}]")
+    log("  serve kernels " + json.dumps(counts))
+    for name, n in counts.items():
+        if name != "block_sparse_matmul_t" and n <= 0:
+            raise AssertionError(f"{name} never launched on the serve path")
+
+    caches = model.init_caches(SERVE_BATCH, SERVE_PAGE)
+    tok = batch[:, :1]
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, device="cuda")
+    model.decode_step(model.arrays, tok, caches, pos)
+    profile_device(lambda: model.decode_step(model.arrays, tok, caches, pos),
+                   "decode step (B=32)", card)
+
+    # equality checks
+    small = ServeEngine(model, ServeConfig(max_slots=8, page_len=SERVE_PAGE,
+                                           max_new=SERVE_NEW))
+    if not np.array_equal(small.generate(prompts[:16]), tokens_cb[:16]):
+        raise AssertionError("tokens differ between 32 and 8 slots")
+    log("  slots: 32-slot and 8-slot tokens bitwise equal on 16 requests")
+    if not np.array_equal(np.asarray(host_loop(model, prompts[:2], "cuda")),
+                          tokens_cb[:2]):
+        raise AssertionError("generate differs from the host decode loop")
+    log("  host loop: generate equals per-request decode_step on 2 requests")
+    ref_tokens, ref_logits = engine.generate(prompts, return_logits=True)
+    if not np.array_equal(ref_tokens, tokens_cb):
+        raise AssertionError("generate is not repeatable")
+    if not np.isfinite(ref_logits).all():
+        raise AssertionError("non-finite logits")
+    ties = wave_ties(tokens_cb, tokens_wave, ref_logits)
+    log(f"  wave mode: generate_prefilled equals generate on "
+        f"{SERVE_REQUESTS - ties}/{SERVE_REQUESTS} requests, {ties} "
+        f"departures on near-ties (top-2 gap < 1e-4 of the logit scale)")
+    del model, engine, small, bundle, params, ref_logits
+    torch.cuda.empty_cache()
+    card_vs_cpu_serve(cfg, card)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -376,6 +906,9 @@ def main() -> int:
     rows = [check_fused(probe.params, probe.data, card),
             check_tile_norms(probe.params, card)]
     del probe
+    serve_rows = [check_matmul(card, transpose=False),
+                  check_matmul(card, transpose=True),
+                  check_decode(card), check_prefill(card)]
     torch.cuda.empty_cache()
 
     log("[4] main path")
@@ -385,6 +918,12 @@ def main() -> int:
 
     log("[5] whole path, card against CPU")
     card_vs_cpu(card)
+
+    log("[6] serve smollm-135m")
+    serve_counts = run_serve(card)
+    for row in serve_rows:
+        row["launches"] = serve_counts[row["name"]]
+    rows += serve_rows
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

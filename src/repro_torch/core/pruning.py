@@ -1,23 +1,32 @@
 """Block-structured pruning: the ranking statistic and per-client keeps.
 
-The port of the ranking half of ``repro.core.pruning``.  Every >= 2-D
-weight matrix is cut into (bk, bn) tiles; a round ranks the tiles once by
-squared L2 norm (``block_norm_state``) and every client's tile-keep
-indicators are then one ``searchsorted`` against the shared cumulative
-element mass (``block_keep``).  The threshold is an element-count-weighted
+The port of ``repro.core.pruning``'s block ranking and keep masks.
+Every >= 2-D weight matrix is cut into (bk, bn) tiles; a round ranks the
+tiles once by squared L2 norm (``block_norm_state``) and every client's
+tile-keep indicators are then one ``searchsorted`` against the shared
+cumulative element mass (``block_keep``).  The threshold is an element-count-weighted
 quantile, so ragged edge tiles count only their real elements.
 
+Leaves with leading dims (a transformer stage's stacked layers) rank
+tiles over the last two dims, batch-wise, exactly as the reference does.
+``masks_from_keep`` / ``apply_masks`` turn keeps into the dense oracle's
+masked params.  Per-leaf state lists follow ``flatten``'s order, which is
+``jax.tree_util``'s: dict keys sorted, lists by index.
+
 The tile norms come from ``kernels.block_norms.tile_norms``: the CUDA
-kernel for a tensor on the card, its plain version on the CPU.
+kernel for a tensor on the card (one launch per stacked slice), its plain
+version on the CPU.
 """
 
 from __future__ import annotations
 
+import numbers
 from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import block_norms as _bn
+from repro_torch.kernels import block_sparse_matmul as _bsm
 
 __all__ = [
     "BlockNormState",
@@ -26,6 +35,10 @@ __all__ = [
     "block_thresholds",
     "block_keep",
     "flatten",
+    "unflatten",
+    "leaf_blocks",
+    "masks_from_keep",
+    "apply_masks",
 ]
 
 PyTree = Any
@@ -33,19 +46,65 @@ DEFAULT_BLOCK = 128
 
 
 def _block_pair(block) -> tuple[int, int]:
-    if isinstance(block, int):
-        return (block, block)
+    if isinstance(block, numbers.Integral):
+        return (int(block), int(block))
     bk, bn = block
     return (int(bk), int(bn))
 
 
 def flatten(tree: PyTree) -> list:
-    """Leaves of nested dicts in ``jax.tree_util.tree_flatten`` order
-    (keys sorted, so ``layer10`` precedes ``layer2``).  Per-leaf state
-    lists align with this order."""
+    """Leaves in ``jax.tree_util.tree_flatten`` order: dict keys sorted (so
+    ``layer10`` precedes ``layer2``), lists and tuples by index, ``None``
+    an empty subtree.  Per-leaf state lists align with this order."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in flatten(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in flatten(sub)]
+    if tree is None:
+        return []
     return [tree]
+
+
+def unflatten(tree: PyTree, leaves: list) -> PyTree:
+    """The structure of ``tree`` with its leaves replaced, in ``flatten``
+    order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {key: build(node[key]) for key in sorted(node)}
+            return {key: out[key] for key in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(sub) for sub in node)
+        if node is None:
+            return None
+        return next(it)
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
+def _flatten_prunable(params: PyTree) -> tuple[list, list[bool]]:
+    leaves = flatten(params)
+    return leaves, [leaf.ndim >= 2 for leaf in leaves]
+
+
+def leaf_blocks(flags: list, block) -> list[Optional[tuple[int, int]]]:
+    """One ``(bk, bn)`` pair per flattened leaf (``None`` for unprunable
+    leaves).  An int or pair broadcasts over every prunable leaf; a list
+    aligns with the leaves and may mix ints, pairs and ``None`` (meaning
+    ``DEFAULT_BLOCK``)."""
+    if isinstance(block, list):
+        if len(block) != len(flags):
+            raise ValueError(
+                f"per-leaf block list has {len(block)} entries for "
+                f"{len(flags)} leaves")
+        return [_block_pair(b if b is not None else DEFAULT_BLOCK)
+                if f else None for f, b in zip(flags, block)]
+    pair = _block_pair(block)
+    return [pair if f else None for f in flags]
 
 
 def block_l2_norms(w: torch.Tensor, block=DEFAULT_BLOCK) -> torch.Tensor:
@@ -63,18 +122,28 @@ def _tile_element_counts(m: int, n: int, block, device) -> torch.Tensor:
     return rows[:, None] * cols[None, :]
 
 
-class BlockNormState(NamedTuple):
-    """Once-per-round ranking statistics for one prunable matrix."""
+def _leaf_tile_norms(leaf: torch.Tensor, block) -> torch.Tensor:
+    """Tile norms over the last two dims; leading dims are batch-wise."""
+    if leaf.ndim == 2:
+        return block_l2_norms(leaf, block)
+    w3 = leaf.reshape((-1,) + tuple(leaf.shape[-2:]))
+    norms = torch.stack([block_l2_norms(w, block) for w in w3])
+    return norms.reshape(tuple(leaf.shape[:-2]) + tuple(norms.shape[1:]))
 
-    norms: torch.Tensor         # (Tk, Tn) tile squared-L2 norms, float32
+
+class BlockNormState(NamedTuple):
+    """Once-per-round ranking statistics for one prunable leaf."""
+
+    norms: torch.Tensor         # lead + (Tk, Tn) tile squared-L2 norms, f32
     sorted_norms: torch.Tensor  # (T,) the same norms, ascending
     cum_frac: torch.Tensor      # (T,) cumulative element mass of sorted tiles
 
 
-def _matrix_state(w: torch.Tensor, block) -> BlockNormState:
-    norms = block_l2_norms(w, block)
-    counts = _tile_element_counts(w.shape[-2], w.shape[-1], block,
-                                  w.device).reshape(-1).to(torch.float32)
+def _leaf_state(leaf: torch.Tensor, block) -> BlockNormState:
+    norms = _leaf_tile_norms(leaf, block)
+    counts = _tile_element_counts(leaf.shape[-2], leaf.shape[-1], block,
+                                  leaf.device).expand(norms.shape)
+    counts = counts.reshape(-1).to(torch.float32)
     flat = norms.reshape(-1)
     order = torch.argsort(flat, stable=True)
     cum = torch.cumsum(counts[order], dim=0)
@@ -85,21 +154,12 @@ def _matrix_state(w: torch.Tensor, block) -> BlockNormState:
 def block_norm_state(params: PyTree, block=DEFAULT_BLOCK
                      ) -> list[Optional[BlockNormState]]:
     """Per-leaf ranking state in ``flatten(params)`` order (``None`` for
-    1-D leaves, which are never pruned).  ``block`` is an int or a
-    ``(bk, bn)`` pair.  Only 2-D leaves are supported: stacked
-    (batched-leading-dim) leaves belong to the transformer tasks, which
-    this port does not carry yet."""
-    out: list[Optional[BlockNormState]] = []
-    for leaf in flatten(params):
-        if leaf.ndim < 2:
-            out.append(None)
-        elif leaf.ndim == 2:
-            out.append(_matrix_state(leaf, block))
-        else:
-            raise NotImplementedError(
-                "block_norm_state on leaves with leading batch dims is not "
-                "ported yet (ROADMAP.md Queue A, item 8: other tasks)")
-    return out
+    1-D leaves, which are never pruned).  ``block`` is an int, a
+    ``(bk, bn)`` pair or a per-leaf list (``leaf_blocks``).  A leaf with
+    leading dims ranks all its tiles together, as the reference does."""
+    leaves, flags = _flatten_prunable(params)
+    return [_leaf_state(leaf, blk) if f else None
+            for leaf, f, blk in zip(leaves, flags, leaf_blocks(flags, block))]
 
 
 def block_thresholds(state: BlockNormState, rate: torch.Tensor
@@ -129,3 +189,26 @@ def block_keep(state: list[Optional[BlockNormState]], rates: torch.Tensor
         keep = (st.norms >= ext) | (rates.reshape(ext.shape) <= 0.0)
         out.append(keep.to(torch.float32))
     return out
+
+
+def masks_from_keep(params: PyTree, keeps: list, block) -> PyTree:
+    """Per-leaf tile keeps (``flatten`` order, ``None`` for unprunable
+    leaves) -> element-level boolean masks shaped like ``params``."""
+    leaves, flags = _flatten_prunable(params)
+    masks = [_bsm.expand_mask(keep > 0, leaf.shape, *blk) if f
+             else torch.ones(leaf.shape, dtype=torch.bool, device=leaf.device)
+             for leaf, f, keep, blk in zip(leaves, flags, keeps,
+                                           leaf_blocks(flags, block))]
+    return unflatten(params, masks)
+
+
+def apply_masks(params: PyTree, masks: PyTree) -> PyTree:
+    """W * M: a boolean mask selects (zeros where dropped), a numeric mask
+    multiplies."""
+    def one(w, m):
+        if m.dtype == torch.bool:
+            return torch.where(m, w, torch.zeros((), dtype=w.dtype,
+                                                 device=w.device))
+        return w * m
+    return unflatten(params, [one(w, m) for w, m in
+                              zip(flatten(params), flatten(masks))])

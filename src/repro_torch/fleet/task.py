@@ -1,8 +1,11 @@
 """FleetTask: what the fleet engine needs from a model + data + loss.
 
-The port of ``repro.fleet.task`` for the slice's one task, the synthetic
-MLP classifier (``SyntheticMLPTask``).  Randomness comes from explicit
-``torch.Generator``s handed in by the engine's draw source; every
+The port of ``repro.fleet.task`` for the synthetic MLP classifier
+(``SyntheticMLPTask``, the fleet round's task) and the model side of
+``TransformerTask`` (config, parameters and tile grid, which the serving
+path needs; its training methods are not ported yet).  Randomness comes
+from explicit ``torch.Generator``s handed in by the engine's draw source;
+every
 client's fixed local batch is drawn once, for the whole fleet, at build
 time (the engine's data cache).
 """
@@ -15,12 +18,32 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core import pruning
 from repro_torch.kernels import fleet_fused as FUSED
 from repro_torch.models import mlp
 
 PyTree = Any
 
-__all__ = ["FleetTask", "SyntheticMLPTask"]
+__all__ = ["FleetTask", "SyntheticMLPTask", "TransformerTask",
+           "auto_tile_grid"]
+
+_ROADMAP_TASKS = "ROADMAP.md Queue A, item 8 (other tasks)"
+
+
+def _auto_block(dim: int, target_tiles: int, min_block: int) -> int:
+    """Tile edge giving ~``target_tiles`` tiles along a ``dim``-sized axis."""
+    return max(min_block, -(-dim // target_tiles))
+
+
+def auto_tile_grid(params: PyTree, target_tiles: int = 8,
+                   min_block: int = 4) -> list:
+    """Per-leaf ``(bk, bn)`` tile specs sized to each leaf's last two dims
+    (about ``target_tiles`` tiles per axis), ``None`` for 1-D leaves, in
+    ``pruning.flatten`` order."""
+    return [(_auto_block(leaf.shape[-2], target_tiles, min_block),
+             _auto_block(leaf.shape[-1], target_tiles, min_block))
+            if leaf.ndim >= 2 else None
+            for leaf in pruning.flatten(params)]
 
 
 class FleetTask(abc.ABC):
@@ -134,3 +157,38 @@ class SyntheticMLPTask(FleetTask):
         keeps = FUSED.layer_keeps(prep, rho)
         return FUSED.fused_fleet_grads(params, batch["x"], batch["y"], keeps,
                                        weights, self.prune_block)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerTask(FleetTask):
+    """Causal-LM task on an ``ArchConfig`` model: the model side only.
+
+    ``config``, ``init_params`` and ``tile_grid`` are ported (the serving
+    path prunes and serves this task's model); the training methods raise
+    ``NotImplementedError``, and the reference's data fields (sequence
+    length, batches, pool, Dirichlet skew) come with them.
+    """
+
+    arch: Any                           # the model's ArchConfig
+    target_tiles: int = 8
+
+    name: str = "transformer"
+
+    def config(self):
+        return self.arch
+
+    def init_params(self, generator):
+        """The model in the config's parameter dtype, drawn on the
+        generator's device (``None``: ``meta`` tensors, shapes only)."""
+        from repro_torch.models import model as M
+        return M.init_params(self.arch, generator)
+
+    def tile_grid(self, params):
+        return auto_tile_grid(params, target_tiles=self.target_tiles)
+
+    def _not_ported(self, *_args, **_kw):
+        raise NotImplementedError(
+            f"TransformerTask training is not ported yet: {_ROADMAP_TASKS}")
+
+    build = client_batch = loss = eval_metrics = _not_ported
+    kernel_prepare = kernel_grads = _not_ported

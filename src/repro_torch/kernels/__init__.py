@@ -1,3 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version: ``block_norms`` (tile norms) and ``fleet_fused`` (fused pruned
-client gradients).  ``build`` compiles ``csrc/`` with nvcc at first use."""
+version: ``block_norms`` (tile norms), ``fleet_fused`` (fused pruned client
+gradients), ``block_sparse_matmul`` (tile-masked products, forward and
+transposed), ``decode_attention`` and ``flash_prefill`` (GQA attention with
+dead-head skips).  ``ops`` wraps them behind the reference's signatures;
+``build`` compiles ``csrc/`` with nvcc at first use."""

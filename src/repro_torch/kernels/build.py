@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("block_norms", "fleet_fused")
+SOURCES = ("block_norms", "fleet_fused", "block_sparse_matmul",
+           "decode_attention", "flash_prefill")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -106,3 +107,17 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def on_card(what: str, *tensors) -> bool:
+    """Where a wrapper's operands lie: True if all on one CUDA device (run
+    the kernel), False if all on the CPU (run the plain version).  Raises
+    ``ValueError`` on a mix or on any other device: a wrapper never falls
+    back quietly."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: operands on {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: operands on {dev}")
+    return dev.type == "cuda"

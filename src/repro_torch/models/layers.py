@@ -1,0 +1,124 @@
+"""Shared layers (the port of ``repro.models.layers``; params = nested dicts).
+
+* every ``init_*`` draws from an explicit ``torch.Generator`` onto the
+  generator's device and returns tensors in ``dtype``; ``generator=None``
+  gives tensors on the ``meta`` device (shapes and dtypes only, what a
+  loader needs to know what to read);
+* weight matrices are stored (in_features, out_features): ``x @ w``;
+* norms and RoPE compute in float32 and return the input's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def device_of(generator: Optional[torch.Generator]):
+    """Where an init draws: the generator's device, or ``meta``."""
+    return generator.device if generator is not None else torch.device("meta")
+
+
+def _normal(generator: Optional[torch.Generator], shape: tuple
+            ) -> torch.Tensor:
+    return torch.randn(shape, generator=generator,
+                       device=device_of(generator), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(generator, d_in: int, d_out: int, dtype,
+               scale: float | None = None) -> dict:
+    scale = (d_in ** -0.5) if scale is None else scale
+    return {"w": (_normal(generator, (d_in, d_out)) * scale).to(dtype)}
+
+
+def dense_bias_init(generator, d_in: int, d_out: int, dtype,
+                    scale: float | None = None) -> dict:
+    p = dense_init(generator, d_in, d_out, dtype, scale)
+    p["b"] = torch.zeros((d_out,), dtype=dtype, device=device_of(generator))
+    return p
+
+
+def embed_init(generator, vocab: int, d_model: int, dtype) -> dict:
+    return {"embedding": (_normal(generator, (vocab, d_model)) * 0.02
+                          ).to(dtype)}
+
+
+def norm_init(d: int, dtype, bias: bool = False, device=None) -> dict:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if bias:
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def init_mlp(generator, d_model: int, d_ff: int, dtype, gated: bool = True,
+             bias: bool = False) -> dict:
+    make = dense_bias_init if bias else dense_init
+    p = {"w_in": make(generator, d_model, d_ff, dtype),
+         "w_out": make(generator, d_ff, d_model, dtype)}
+    if gated:
+        p["w_gate"] = make(generator, d_model, d_ff, dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Apply functions
+# ---------------------------------------------------------------------------
+
+def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32.  The mean of squares is summed in float64 and
+    rounded to float32, so a row's result does not depend on how many rows
+    the reduction kernel is given (the serving engine's slot invariance
+    rests on it); the reference sums in float32, within an ulp of this."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32.to(torch.float64) ** 2, dim=-1,
+                     keepdim=True).to(torch.float32)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32)
+    if "bias" in p:
+        y = y + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# jax.nn.gelu defaults to the tanh approximation; "gelu" follows it
+ACTS = {"silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcastable to
+    (..., seq).  Split-half rotation: the first and second halves of
+    head_dim are the two coordinates of each rotated pair."""
+    dim = x.shape[-1]
+    freqs = rope_frequencies(dim, theta, x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

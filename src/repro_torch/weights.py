@@ -18,9 +18,11 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.fleet.engine import RoundDraws, SimStart
 from repro_torch.fleet.topology import ClientPopulation
+from repro_torch.serve.export import PrunedBundle
 
 __all__ = ["tensor", "tree_from_numpy", "population_from_numpy",
-           "round_draws_from_numpy", "start_from_numpy", "to_numpy"]
+           "round_draws_from_numpy", "start_from_numpy", "to_numpy",
+           "bundle_from_numpy"]
 
 
 def tensor(a, dtype: torch.dtype = torch.float32, device=None
@@ -33,14 +35,17 @@ def tensor(a, dtype: torch.dtype = torch.float32, device=None
     return torch.as_tensor(a, device=device).to(dtype)
 
 
-def tree_from_numpy(tree: Mapping, dtype: torch.dtype = torch.float32,
-                    device=None) -> dict:
-    """Nested dicts of arrays -> the same dicts of tensors: params
-    (``{"layer{i}": {"w": (in, out), "b": (out,)}}``), task state
+def tree_from_numpy(tree, dtype: torch.dtype = torch.float32,
+                    device=None):
+    """Nested dicts and lists of arrays -> the same structure of tensors:
+    params (``{"layer{i}": {"w": (in, out), "b": (out,)}}``, or a
+    transformer's ``{"embed", "final_norm", "stages": [...]}``), task state
     (``templates``, ``x_test``, ``y_test``) or cached client batches
     (``{"x": (n, batch, D), "y": (n, batch)}``)."""
     if isinstance(tree, Mapping):
         return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, dtype, device) for v in tree)
     return tensor(tree, dtype, device)
 
 
@@ -70,8 +75,23 @@ def start_from_numpy(params: Mapping, task_state: Mapping, batches: Mapping,
                       for t in (params, task_state, batches)))
 
 
+def bundle_from_numpy(bundle: Any, dtype: torch.dtype = torch.float32,
+                      device=None):
+    """A pruned bundle (``params``, ``keeps``, ``grid``, ``rho`` as numpy,
+    e.g. the reference's ``PrunedBundle``) -> the port's ``PrunedBundle``:
+    params in ``dtype``, float32 keeps, grid entries as int pairs."""
+    keeps = [None if k is None else tensor(k, torch.float32, device)
+             for k in bundle.keeps]
+    grid = [None if b is None else (int(b[0]), int(b[1]))
+            for b in bundle.grid]
+    return PrunedBundle(params=tree_from_numpy(bundle.params, dtype, device),
+                        keeps=keeps, grid=grid, rho=float(bundle.rho))
+
+
 def to_numpy(tree):
-    """Tensors (nested in dicts) -> numpy arrays."""
+    """Tensors (nested in dicts and lists) -> numpy arrays."""
     if isinstance(tree, Mapping):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()

@@ -43,5 +43,11 @@ def test_package_covers_the_slice_modules():
     expected = {"core.closed_form", "core.wireless", "core.convergence",
                 "core.pruning", "models.mlp", "kernels.block_norms",
                 "kernels.fleet_fused", "fleet.topology", "fleet.scheduler",
-                "fleet.solver", "fleet.task", "fleet.engine", "weights"}
+                "fleet.solver", "fleet.task", "fleet.engine", "weights",
+                "configs", "configs.base", "configs.smollm_135m",
+                "models.layers", "models.attention", "models.blocks",
+                "models.model", "kernels.block_sparse_matmul",
+                "kernels.decode_attention", "kernels.flash_prefill",
+                "kernels.ops", "checkpoint", "serve", "serve.export",
+                "serve.sparse", "serve.model", "serve.engine"}
     assert {f"repro_torch.{m}" for m in expected} <= set(_modules())

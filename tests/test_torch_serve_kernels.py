@@ -1,0 +1,390 @@
+"""The serving kernels of the port against the reference.
+
+The port's plain versions (what a wrapper runs on a CPU tensor) against
+``repro.kernels.ops`` run through the Pallas kernels in interpret mode, as
+``tests/test_serve.py`` runs them, and against the oracles of
+``repro.kernels.ref``, at rtol = atol = 2e-5 (float32 sums in another
+order).  Inputs come from a numpy seed.  The ``gpu`` tests hold each CUDA
+kernel against its plain version on the card and check that the wrappers
+refuse operands they cannot take.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import block_sparse_matmul as TBSM
+from repro_torch.kernels import decode_attention as TDA
+from repro_torch.kernels import flash_prefill as TFP
+from repro_torch.kernels import ops as TOPS
+
+try:  # the card's machine has no JAX: only the gpu tests run there
+    import jax.numpy as jnp
+    from repro.kernels import flash_prefill as JFP
+    from repro.kernels import ops as JOPS
+    from repro.kernels import ref as JREF
+except ImportError:
+    JOPS = None
+needs_jax = pytest.mark.skipif(JOPS is None, reason="needs the JAX reference")
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _matmul_case(rho, transpose, lead=(5,), seed=3):
+    """The ragged 50 x 70 / (16, 32) case of tests/test_serve.py."""
+    rng = np.random.default_rng(seed)
+    kdim, n, bk, bn = 50, 70, 16, 32
+    tk, tn = -(-kdim // bk), -(-n // bn)
+    w = rng.normal(size=(kdim, n)).astype(np.float32)
+    x = rng.normal(size=lead + ((n if transpose else kdim),)
+                   ).astype(np.float32)
+    keep = (rng.uniform(size=(tk, tn)) >= rho).astype(np.float32)
+    return x, w, keep, bk, bn
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse matmul
+# ---------------------------------------------------------------------------
+
+@needs_jax
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("rho", [0.0, 0.5, 0.9, 1.0])
+def test_masked_matmul_plain_matches_reference(rho, transpose):
+    x, w, keep, bk, bn = _matmul_case(rho, transpose)
+    got = TOPS.masked_matmul(torch.as_tensor(x), torch.as_tensor(w),
+                             torch.as_tensor(keep), bk, bn,
+                             transpose_rhs=transpose)
+    pallas = JOPS.masked_matmul(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(keep), block_k=bk, block_n=bn,
+                                transpose_rhs=transpose, interpret=True)
+    _close(got, pallas)
+    kp, np_ = keep.shape[0] * bk, keep.shape[1] * bn
+    wp = np.pad(w, ((0, kp - w.shape[0]), (0, np_ - w.shape[1])))
+    if transpose:
+        xp = np.pad(x, ((0, 0), (0, np_ - x.shape[1])))
+        want = JREF.block_sparse_matmul_t(xp, wp, keep, bk, bn)
+        _close(got, np.asarray(want)[:, :w.shape[0]])
+    else:
+        xp = np.pad(x, ((0, 0), (0, kp - x.shape[1])))
+        want = JREF.block_sparse_matmul(xp, wp, keep, bk, bn)
+        _close(got, np.asarray(want)[:, :w.shape[1]])
+
+
+@needs_jax
+@pytest.mark.parametrize("transpose", [False, True])
+def test_masked_matmul_leading_dims(transpose):
+    x, w, keep, bk, bn = _matmul_case(0.5, transpose, lead=(2, 3))
+    got = TOPS.masked_matmul(torch.as_tensor(x), torch.as_tensor(w),
+                             torch.as_tensor(keep), bk, bn,
+                             transpose_rhs=transpose)
+    want = JOPS.masked_matmul(jnp.asarray(x), jnp.asarray(w),
+                              jnp.asarray(keep), block_k=bk, block_n=bn,
+                              transpose_rhs=transpose, interpret=True)
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+def test_matmul_on_cpu_runs_plain_and_counts_nothing():
+    x, w, keep, bk, bn = _matmul_case(0.5, False)
+    before = (TBSM.block_sparse_matmul.launches,
+              TBSM.block_sparse_matmul_t.launches)
+    args = (torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(keep))
+    torch.testing.assert_close(
+        TBSM.block_sparse_matmul(*args, bk, bn),
+        TBSM.block_sparse_matmul_plain(*args, bk, bn), rtol=0, atol=0)
+    xt = torch.randn(5, 70)
+    torch.testing.assert_close(
+        TBSM.block_sparse_matmul_t(xt, *args[1:], bk, bn),
+        TBSM.block_sparse_matmul_plain(xt, *args[1:], bk, bn, True),
+        rtol=0, atol=0)
+    assert (TBSM.block_sparse_matmul.launches,
+            TBSM.block_sparse_matmul_t.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["mask_grid", "contraction", "ndim", "meta"])
+def test_matmul_refuses_bad_operands(bad):
+    x, w, keep = torch.randn(5, 50), torch.randn(50, 70), torch.ones(4, 3)
+    if bad == "mask_grid":
+        keep = torch.ones(3, 3)
+    elif bad == "contraction":
+        x = torch.randn(5, 49)
+    elif bad == "ndim":
+        x = x[None]
+    else:
+        x = x.to("meta")
+    with pytest.raises(ValueError):
+        TBSM.block_sparse_matmul(x, w, keep, 16, 32)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+
+def _decode_case(seed=5, b=3, h=6, hkv=3, hd=8, s=40):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, s, hkv, hd)).astype(np.float32)
+    pos = np.array([0, 17, 39], np.int32)[:b]
+    return q, k, v, pos
+
+
+@needs_jax
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("mask", [None, [1, 0, 1], [0, 0, 0]])
+def test_decode_plain_matches_reference(mask, window):
+    q, k, v, pos = _decode_case()
+    hm = None if mask is None else np.asarray(mask, np.float32)
+    got = TOPS.flash_decode(torch.as_tensor(q), torch.as_tensor(k),
+                            torch.as_tensor(v), torch.as_tensor(pos),
+                            window=window, head_mask=hm)
+    pallas = JOPS.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), jnp.asarray(pos), block_s=16,
+                               window=window, head_mask=hm, impl="pallas",
+                               interpret=True)
+    _close(got, pallas)
+    _close(got, JREF.decode_attention(q, k, v, pos, window=window,
+                                      head_mask=hm))
+
+
+def test_decode_ignores_the_stale_tail_beyond_pos():
+    """A recycled slot's old keys past ``pos`` change nothing."""
+    q, k, v, pos = (torch.as_tensor(a) for a in _decode_case())
+    k2, v2 = k.clone(), v.clone()
+    for row, p in enumerate(pos.tolist()):
+        k2[row, p + 1:] = 1e3
+        v2[row, p + 1:] = -1e3
+    torch.testing.assert_close(TOPS.flash_decode(q, k2, v2, pos),
+                               TOPS.flash_decode(q, k, v, pos),
+                               rtol=0, atol=0)
+
+
+def test_decode_on_cpu_counts_nothing_and_checks_shapes():
+    q, k, v, pos = (torch.as_tensor(a) for a in _decode_case())
+    before = TDA.decode_attention.launches
+    TDA.decode_attention(q, k, v, pos)
+    assert TDA.decode_attention.launches == before
+    with pytest.raises(ValueError):
+        TDA.decode_attention(q, k, v, pos[:2])
+    with pytest.raises(ValueError):
+        TDA.decode_attention(q, k, v, pos, head_mask=torch.ones(2))
+    with pytest.raises(ValueError):
+        TDA.decode_attention(q[:, :5], k, v, pos)
+
+
+# ---------------------------------------------------------------------------
+# Flash prefill
+# ---------------------------------------------------------------------------
+
+def _prefill_case(seed=6, b=2, s=24, t=24, h=4, hkv=2, hd=8):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, t, hkv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, t, hkv, hd)).astype(np.float32)
+    return q, k, v
+
+
+@needs_jax
+@pytest.mark.parametrize("causal,window,mask", [
+    (True, None, None), (True, None, [0, 1]), (False, None, [1, 0]),
+    (True, 5, None), (False, 7, [1, 1])])
+def test_prefill_plain_matches_reference(causal, window, mask):
+    q, k, v = _prefill_case()
+    hm = None if mask is None else np.asarray(mask, np.float32)
+    got = TOPS.flash_prefill(torch.as_tensor(q), torch.as_tensor(k),
+                             torch.as_tensor(v), causal=causal,
+                             window=window, head_mask=hm)
+    pallas = JOPS.flash_prefill(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal, window=window,
+                                block_q=8, block_s=8, head_mask=hm,
+                                impl="pallas", interpret=True)
+    _close(got, pallas)
+    _close(got, JREF.prefill_attention(q, k, v, causal=causal, window=window,
+                                       head_mask=hm))
+
+
+@needs_jax
+@pytest.mark.parametrize("causal", [True, False])
+def test_prefill_ragged_t_valid_matches_reference(causal):
+    """Keys at and past ``t_valid`` are masked: against the Pallas kernel
+    (block multiples, as its wrapper would pad) and the oracle."""
+    q, k, v = _prefill_case(s=16, t=24)
+    hm = np.asarray([1, 0], np.float32)
+    got = TFP.flash_prefill(torch.as_tensor(q), torch.as_tensor(k),
+                            torch.as_tensor(v), causal=causal, t_valid=19,
+                            head_mask=torch.as_tensor(hm))
+    pallas = JFP.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               block_q=8, block_s=8, causal=causal,
+                               t_valid=19, head_mask=jnp.asarray(hm),
+                               interpret=True)
+    _close(got, pallas)
+    _close(got, JREF.prefill_attention(q, k, v, causal=causal, t_valid=19,
+                                       head_mask=hm))
+
+
+def test_prefill_on_cpu_counts_nothing_and_checks_shapes():
+    q, k, v = (torch.as_tensor(a) for a in _prefill_case())
+    before = TFP.flash_prefill.launches
+    TFP.flash_prefill(q, k, v)
+    assert TFP.flash_prefill.launches == before
+    with pytest.raises(ValueError):
+        TFP.flash_prefill(q, k[:, :, :1], v)
+    with pytest.raises(ValueError):
+        TFP.flash_prefill(q, k, v, t_valid=25)
+
+
+def _no_valid_key_case(kind):
+    """Inputs where some query rows see no valid key: decode rows whose
+    window lies past the cache's end, a prefill with ``t_valid = 0``."""
+    if kind == "decode":
+        q, k, v, _ = _decode_case(s=40)
+        return dict(q=q, k=k, v=v, pos=np.array([5, 45, 60], np.int32),
+                    window=5), [1, 2]
+    q, k, v = _prefill_case(s=16, t=24)
+    return dict(q=q, k=k, v=v, causal=False, t_valid=0), [0, 1]
+
+
+def _port_attention(kind, case, device="cpu"):
+    t = {n: torch.as_tensor(a, device=device) if isinstance(a, np.ndarray)
+         else a for n, a in case.items()}
+    if kind == "decode":
+        return TDA.decode_attention(t["q"], t["k"], t["v"], t["pos"],
+                                    window=t["window"])
+    return TFP.flash_prefill(t["q"], t["k"], t["v"], causal=t["causal"],
+                             t_valid=t["t_valid"])
+
+
+@needs_jax
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_rows_without_a_valid_key_match_reference(kind):
+    """Such a row outputs zeros, as the Pallas kernel (interpret mode) and
+    the CUDA kernels do."""
+    case, empty = _no_valid_key_case(kind)
+    got = _port_attention(kind, case)
+    j = {n: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+         for n, a in case.items()}
+    if kind == "decode":
+        want = JOPS.flash_decode(j["q"], j["k"], j["v"], j["pos"], block_s=16,
+                                 window=j["window"], impl="pallas",
+                                 interpret=True)
+    else:
+        want = JFP.flash_prefill(j["q"], j["k"], j["v"], block_q=8, block_s=8,
+                                 causal=False, t_valid=0, interpret=True)
+    _close(got, want)
+    assert float(got[empty].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+def test_matmul_kernels_match_plain_on_gpu():
+    g = _card()
+    for m, kdim, n, bk, bn in [(5, 50, 70, 16, 32), (32, 576, 192, 72, 24),
+                               (1, 1536, 576, 192, 72),
+                               (33, 576, 49152, 72, 6144)]:
+        x = torch.randn(m, kdim, generator=g, device="cuda")
+        xt = torch.randn(m, n, generator=g, device="cuda")
+        w = torch.randn(kdim, n, generator=g, device="cuda")
+        for rho in (0.0, 0.5, 1.0):
+            keep = (torch.rand(-(-kdim // bk), -(-n // bn), generator=g,
+                               device="cuda") >= rho).float()
+            before = TBSM.block_sparse_matmul.launches
+            y = TBSM.block_sparse_matmul(x, w, keep, bk, bn)
+            yt = TBSM.block_sparse_matmul_t(xt, w, keep, bk, bn)
+            torch.cuda.synchronize()
+            assert TBSM.block_sparse_matmul.launches == before + 1
+            assert _rel(y, TBSM.block_sparse_matmul_plain(
+                x, w, keep, bk, bn)) <= 1e-4
+            assert _rel(yt, TBSM.block_sparse_matmul_plain(
+                xt, w, keep, bk, bn, True)) <= 1e-4
+            if rho == 1.0:
+                assert float(y.abs().max()) == 0.0
+    # a row's result does not depend on M
+    full = TBSM.block_sparse_matmul(x, w, keep.fill_(1.0), bk, bn)
+    torch.testing.assert_close(TBSM.block_sparse_matmul(x[3:4], w, keep,
+                                                        bk, bn),
+                               full[3:4], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_match_plain_on_gpu():
+    g = _card()
+    for b, s, h, hkv, hd, window, hm in [(3, 40, 6, 3, 8, None, [1, 0, 1]),
+                                         (32, 2048, 9, 3, 64, 100, None)]:
+        q = torch.randn(b, h, hd, generator=g, device="cuda")
+        k = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+        v = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+        pos = torch.randint(0, s, (b,), generator=g, device="cuda")
+        pos[0] = 0
+        hmt = None if hm is None else torch.tensor(hm, device="cuda",
+                                                   dtype=torch.float32)
+        got = TDA.decode_attention(q, k, v, pos, window, hmt)
+        assert _rel(got, TDA.decode_attention_plain(q, k, v, pos, window,
+                                                    hmt)) <= 1e-4
+    for causal, window, t_valid, hm in [(True, None, None, [0, 1, 1]),
+                                        (False, 7, 45, None)]:
+        q = torch.randn(4, 50, 9, 64, generator=g, device="cuda")
+        k = torch.randn(4, 50, 3, 64, generator=g, device="cuda")
+        v = torch.randn(4, 50, 3, 64, generator=g, device="cuda")
+        hmt = None if hm is None else torch.tensor(hm, device="cuda",
+                                                   dtype=torch.float32)
+        got = TFP.flash_prefill(q, k, v, causal, window, t_valid, hmt)
+        assert _rel(got, TFP.flash_prefill_plain(q, k, v, causal, window,
+                                                 t_valid, hmt)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_rows_without_a_valid_key_match_plain_on_gpu(kind):
+    _card()
+    case, empty = _no_valid_key_case(kind)
+    got = _port_attention(kind, case, "cuda").cpu()
+    torch.testing.assert_close(got, _port_attention(kind, case), rtol=1e-4,
+                               atol=1e-4)
+    assert float(got[empty].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_bad_operands_on_gpu():
+    _card()
+    w = torch.randn(50, 70, device="cuda")
+    keep = torch.ones(4, 3, device="cuda")
+    with pytest.raises(ValueError, match="operands on"):
+        TBSM.block_sparse_matmul(torch.randn(5, 50), w, keep, 16, 32)
+    with pytest.raises(TypeError):
+        TBSM.block_sparse_matmul(torch.randn(5, 50, device="cuda").double(),
+                                 w, keep, 16, 32)
+    with pytest.raises(ValueError):
+        TBSM.block_sparse_matmul(torch.randn(5, 50, device="cuda"), w,
+                                 torch.ones(3, 3, device="cuda"), 16, 32)
+    q = torch.randn(2, 4, 8, device="cuda")
+    k = torch.randn(2, 16, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="operands on"):
+        TDA.decode_attention(q, k, k, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        TDA.decode_attention(torch.randn(2, 4, 256, device="cuda"),
+                             torch.randn(2, 16, 2, 256, device="cuda"),
+                             torch.randn(2, 16, 2, 256, device="cuda"),
+                             torch.zeros(2, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError):
+        TFP.flash_prefill(torch.randn(2, 16, 4, 256, device="cuda"),
+                          torch.randn(2, 16, 2, 256, device="cuda"),
+                          torch.randn(2, 16, 2, 256, device="cuda"))
+    with pytest.raises(ValueError, match="operands on"):
+        TFP.flash_prefill(q[:, None], k, k.cpu())
