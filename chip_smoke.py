@@ -13,7 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
                device times from torch.profiler (the kernel's own launches,
                the plain version's and, where one exists, a library call's
                device ops), beside the kernel call's CUDA-event time, which
-               includes the host's dispatch (``call_ms``);
+               includes the host's dispatch (``call_ms``); the decode
+               step's matmul by serving shape (launches a step, ms, bound,
+               torch.matmul) and the same products at the prefill wave's
+               M = 1024 against torch.matmul (``wave_ms``,
+               ``wave_library_ms``); prefill also at G = 4 / hd = 64 and
+               G = 7 / hd = 128 with ragged t_valid, windows, a dead head;
   4. main    — 5 synchronous fleet rounds: 10,000 clients (100 x 100 cells),
                the paper's 784-60-20-10 DNN, kernel="fused"; per-round
                metrics and wall time, launch counts (each > 0), and a second
@@ -338,12 +343,50 @@ def check_matmul(card: str, transpose: bool) -> dict:
         f"({call_ms:.4f} ms a call), {plain_ms:.4f} ms plain, {lib_ms:.4f} "
         f"ms torch.matmul on masked W, bound "
         f"{bound:.4f} ms ({bound_by}) [{card}]")
-    return dict(name=name, route="cuda",
-                source="src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
-                replaces="src/repro/kernels/block_sparse_matmul.py:"
-                         + ("50" if transpose else "74"),
-                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+    row = dict(name=name, route="cuda",
+               source="src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
+               replaces="src/repro/kernels/block_sparse_matmul.py:"
+                        + ("50" if transpose else "74"),
+               max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+    if not transpose:
+        matmul_by_shape(fn, cases, masked, card)
+        row.update(matmul_wave(fn, cases, masked, g, card))
+    return row
+
+
+def matmul_by_shape(fn, cases, masked, card: str) -> None:
+    """The decode step's products by serving shape (B = 32): launches per
+    step, device time of one product, its bound and torch.matmul's."""
+    import torch
+    step = STEP_LINEARS * SERVE_LAYERS + ["unembed"]
+    for lin in SERVE_LINEARS:
+        i = step.index(lin)
+        c, wm = cases[i], masked[i]
+        ms = device_ms(lambda: fn(*c), 20, ("bsmm_kernel",))
+        lib_ms = device_ms(lambda: torch.matmul(c[0], wm), 20)
+        bound, bound_by = matmul_bound_ms([c], False)
+        log(f"    {lin} {tuple(c[1].shape)}: {step.count(lin)} launches a "
+            f"step, {ms:.4f} ms a product on the device, bound {bound:.5f} "
+            f"ms ({bound_by}), torch.matmul {lib_ms:.4f} ms [{card}]")
+
+
+def matmul_wave(fn, cases, masked, g, card: str) -> dict:
+    """The same 211 products at the prefill wave's M = 1024 (32 x 32
+    tokens) against torch.matmul on the masked W."""
+    import torch
+    m = SERVE_BATCH * SERVE_PROMPT
+    wave = [(torch.randn(m, w.shape[0], generator=g, device="cuda"), w, k,
+             bk, bn) for _, w, k, bk, bn in cases]
+    ms = device_ms(lambda: [fn(*c) for c in wave], 3, ("bsmm_kernel",))
+    lib_ms = device_ms(lambda: [torch.matmul(c[0], wm)
+                                for c, wm in zip(wave, masked)], 3)
+    bound, bound_by = matmul_bound_ms(wave, False)
+    log(f"  block_sparse_matmul prefill wave ({len(wave)} products, M={m}, "
+        f"rho=0.5): {ms:.4f} ms kernel on the device, {lib_ms:.4f} ms "
+        f"torch.matmul on masked W ({ms / lib_ms:.2f}x), bound {bound:.4f} "
+        f"ms ({bound_by}) [{card}]")
+    return dict(wave_ms=ms, wave_library_ms=lib_ms, wave_bound_ms=bound)
 
 
 def sdpa(q, k, v, valid):
@@ -441,6 +484,25 @@ def check_prefill(card: str) -> dict:
             f"{None if hm is None else hm.tolist()}: max_abs_err={diff:.3e} "
             f"rel={rel:.3e} (tol {TOL})")
         if rel > TOL:
+            raise AssertionError("flash_prefill disagrees")
+    # granite-3-2b's (G = 4, hd = 64) and qwen2-7b's (G = 7, hd = 128) head
+    # layouts: ragged t_valid, a window, a dead KV head
+    for group, hd, hkv, window in [(4, 64, 8, None), (4, 64, 8, 24),
+                                   (7, 128, 4, None), (7, 128, 4, 24)]:
+        qg = torch.randn(4, 100, hkv * group, hd, generator=g, device="cuda")
+        kg = torch.randn(4, 100, hkv, hd, generator=g, device="cuda")
+        vg = torch.randn(4, 100, hkv, hd, generator=g, device="cuda")
+        hm = torch.ones(hkv, device="cuda")
+        hm[1] = 0.0
+        got = FP.flash_prefill(qg, kg, vg, True, window, 77, hm)
+        ref = FP.flash_prefill_plain(qg, kg, vg, True, window, 77, hm)
+        torch.cuda.synchronize()
+        diff, rel = rel_err(got, ref)
+        worst = max(worst, diff)
+        log(f"  flash_prefill G={group} hd={hd} Hkv={hkv} S=T=100 t_valid=77 "
+            f"window={window} head 1 dead: max_abs_err={diff:.3e} "
+            f"rel={rel:.3e} (tol {TOL})")
+        if rel > TOL or float(got[:, :, group:2 * group].abs().max()) != 0:
             raise AssertionError("flash_prefill disagrees")
     ms = device_ms(lambda: FP.flash_prefill(q, k, v), 50, ("prefill_kernel",))
     call_ms = cuda_ms(lambda: FP.flash_prefill(q, k, v), 50)

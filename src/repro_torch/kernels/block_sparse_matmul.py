@@ -16,21 +16,97 @@ are the mask granularity and may be any size: no dim has to be a multiple
 of them, and nothing is padded.
 
 On the card both launch ``csrc/block_sparse_matmul.cu`` (float32 on the
-CUDA cores, masked chunks skipped with their loads, a row's result
-independent of M), each counted in its own ``launches``; on the CPU they
-run ``block_sparse_matmul_plain``.
+CUDA cores, dropped segments skipped with their loads, a row's result
+bitwise independent of M), each counted in its own ``launches``; on the
+CPU they run ``block_sparse_matmul_plain``.  ``launch_plan`` picks the
+kernel's regime; ``segments`` cuts the contraction, from its length and
+the mask tile alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
 __all__ = ["block_sparse_matmul", "block_sparse_matmul_t",
-           "block_sparse_matmul_plain", "expand_mask"]
+           "block_sparse_matmul_plain", "expand_mask", "segments",
+           "segment_bounds", "launch_plan"]
+
+# The kernel's geometry, mirrored from csrc/block_sparse_matmul.cu (the
+# kernel refuses a plan that breaks its limits):
+STRIP = 64                 # output columns of a CTA: csrc BN
+ROW_BLOCKS = (32, 64)      # rows of a CTA for m <= 32 / else: csrc
+                           # rows_of<2>(), rows_of<4>()
+SEG_MAX = 96               # longest segment: csrc kStage
+CLUSTER_MAX = 16           # most CTAs a split cluster: csrc kCluster
+SPLIT_MAX_SEGMENTS = 32    # 8-CTA clusters x csrc kMaxSlots (4)
+SEGMENTS = 8               # segments a contraction aims at (one a CTA)
+
+
+def segments(c: int, bc: int) -> tuple[int, int, int]:
+    """(nsub, seg_len, nseg) of a contraction of length ``c`` under mask
+    tiles of ``bc`` along it: each tile row splits into ``nsub`` pieces of
+    ``seg_len`` (the last may be shorter), enough for ``SEGMENTS`` in all
+    and none longer than ``SEG_MAX``; ``nseg`` counts them, with empty
+    ones past the end of a short last tile row.  A function of ``c`` and
+    ``bc`` only, so every M sums in one order."""
+    if c == 0:
+        return 1, 1, 0
+    span, rows = min(bc, c), -(-c // bc)
+    nsub = min(span, max(-(-SEGMENTS // rows), -(-span // SEG_MAX)))
+    seg_len = -(-span // nsub)
+    nsub = -(-span // seg_len)
+    return nsub, seg_len, rows * nsub
+
+
+def segment_bounds(c: int, bc: int) -> list[tuple[int, int]]:
+    """The non-empty segments [lo, hi) in the kernel's order."""
+    nsub, seg_len, nseg = segments(c, bc)
+    out = []
+    for s in range(nseg):
+        t, sub = divmod(s, nsub)
+        lo = t * bc + sub * seg_len
+        hi = min(lo + seg_len, (t + 1) * bc, c)
+        if lo < hi:
+            out.append((lo, hi))
+    return out
+
+
+class Plan(NamedTuple):
+    nsub: int
+    seg_len: int
+    nseg: int
+    cluster: int    # CTAs a split cluster, 0 for the walk
+    ctas: int       # what the launch puts on the card
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(m: int, c: int, no: int, bc: int, num_sms: int) -> Plan:
+    """The kernel's regime for an (m, c) @ (c, no) product.  The walk puts
+    a CTA on each 64-column strip and block of 32 rows (m <= 32) or 64;
+    where that is fewer than two CTAs an SM, the split gives each tile a
+    cluster of CTAs sharing its segments (16 where the card holds them
+    all at once, else 8), folded through distributed shared memory.
+    Either regime gives the same bits.  Memoised: a decode step asks for
+    the same few plans 211 times."""
+    nsub, seg_len, nseg = segments(c, bc)
+    rows = ROW_BLOCKS[0] if m <= ROW_BLOCKS[0] else ROW_BLOCKS[1]
+    tiles = -(-no // STRIP) * -(-m // rows)
+    cluster = 0
+    if 1 < nseg <= SPLIT_MAX_SEGMENTS and tiles < 2 * num_sms:
+        cluster = min(nseg, CLUSTER_MAX if tiles * CLUSTER_MAX <= 2 * num_sms
+                      else 8)
+    return Plan(nsub, seg_len, nseg, cluster, tiles * max(cluster, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def expand_mask(mask: torch.Tensor, shape: tuple, block_k: int,
@@ -56,7 +132,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("block_sparse_matmul")
     for fn in (lib.bsmm_forward, lib.bsmm_transposed):
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
@@ -80,9 +156,11 @@ def _check(what, x, w, mask, block_k, block_n, transpose_rhs) -> None:
 
 
 def _run(counted, fn_name: str, x, w, mask, block_k, block_n,
-         transpose_rhs):
+         transpose_rhs, cluster=None):
     """Check, then the plain version on the CPU or the kernel on the card
-    (adding one to ``counted.launches`` per launch)."""
+    (adding one to ``counted.launches`` per launch).  ``cluster`` (tests
+    only) overrides the plan's regime: 0 the walk, else the split's
+    cluster size."""
     what = fn_name
     _check(what, x, w, mask, block_k, block_n, transpose_rhs)
     if not build.on_card(what, x, w, mask):
@@ -101,9 +179,14 @@ def _run(counted, fn_name: str, x, w, mask, block_k, block_n,
         return y
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = getattr(lib, fn_name)(build.ptr(x), build.ptr(w), build.ptr(mask),
-                                 build.ptr(y), x.shape[0], k, n, block_k,
-                                 block_n, ctypes.c_void_p(stream))
+    m = x.shape[0]
+    c, no, bc = (n, k, block_n) if transpose_rhs else (k, n, block_k)
+    plan = launch_plan(m, c, no, bc, _num_sms(x.device.index))
+    code = getattr(lib, fn_name)(
+        build.ptr(x), build.ptr(w), build.ptr(mask), build.ptr(y), m, k, n,
+        block_k, block_n, plan.nsub, plan.seg_len,
+        plan.cluster if cluster is None else cluster,
+        ctypes.c_void_p(stream))
     build.check(lib, code, fn_name)
     counted.launches += 1
     return y

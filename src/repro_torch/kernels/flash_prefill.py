@@ -9,8 +9,9 @@ query i iff ``j < t_valid``, ``j <= i`` when ``causal`` and
 (``t_valid = 0``).  Returns (B, S, H, hd) float32.
 
 On the card ``flash_prefill`` launches ``csrc/flash_prefill.cu`` (one CTA
-per (query block, KV head, row), whole dead key blocks skipped, online
-softmax), counted in ``flash_prefill.launches``; on the CPU it runs
+per 32 (query position, query head) rows of a KV head and batch row, a
+warp per 4 rows, whole dead key blocks skipped, online softmax), counted
+in ``flash_prefill.launches``; on the CPU it runs
 ``flash_prefill_plain``, the reference's oracle
 (``repro.kernels.ref.prefill_attention``) in plain PyTorch.
 """
@@ -27,7 +28,6 @@ from repro_torch.kernels import build
 __all__ = ["flash_prefill", "flash_prefill_plain"]
 
 MAX_HEAD_DIM = 128
-MAX_GROUP = 64         # query heads per KV head (csrc kMaxR)
 
 
 def flash_prefill_plain(q, k, v, causal: bool = True,
@@ -104,10 +104,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"got {t.dtype}")
     b, s, h, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM or h // hkv > MAX_GROUP:
+    if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_prefill kernel: head_dim {hd} (max "
-                         f"{MAX_HEAD_DIM}), group {h // hkv} (max "
-                         f"{MAX_GROUP})")
+                         f"{MAX_HEAD_DIM})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     hm = torch.ones((hkv,), dtype=torch.int32, device=q.device) \
         if head_mask is None else (head_mask > 0).to(torch.int32).contiguous()

@@ -120,6 +120,47 @@ def test_matmul_refuses_bad_operands(bad):
         TBSM.block_sparse_matmul(x, w, keep, 16, 32)
 
 
+# the five distinct (K, N, bk, bn) of smollm-135m's serving linears and
+# the ragged case above
+SERVE_SHAPES = [(576, 576, 72, 72), (576, 192, 72, 24), (576, 1536, 72, 192),
+                (1536, 576, 192, 72), (576, 49152, 72, 6144),
+                (50, 70, 16, 32)]
+ROWS = (1, 8, 32, 33, 64, 65, 1024)
+
+
+@pytest.mark.parametrize("kdim,n,bk,bn", SERVE_SHAPES + [(0, 8, 4, 4),
+                                                        (40, 8, 128, 4)])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_matmul_segments_depend_on_contraction_only(kdim, n, bk, bn,
+                                                    transpose):
+    """The kernel's segments tile the contraction in order, never cross a
+    mask-tile row, fit the kernel's stages, and are the same for every M
+    and launch regime."""
+    c, no, bc = (n, kdim, bn) if transpose else (kdim, n, bk)
+    bounds = TBSM.segment_bounds(c, bc)
+    flat = [i for lo, hi in bounds for i in range(lo, hi)]
+    assert flat == list(range(c))
+    for lo, hi in bounds:
+        assert lo // bc == (hi - 1) // bc
+        assert hi - lo <= TBSM.SEG_MAX
+    plans = [TBSM.launch_plan(m, c, no, bc, 132) for m in ROWS]
+    assert {(p.nsub, p.seg_len, p.nseg) for p in plans} \
+        == {TBSM.segments(c, bc)}
+    for p in plans:     # the kernel's limits: 16 CTAs, 4 segments each
+        assert p.cluster <= min(16, p.nseg)
+        assert not p.cluster or p.nseg <= 4 * p.cluster
+
+
+def test_matmul_plan_spreads_the_decode_products():
+    """At decode batch (M = 32) the narrow serving products split their
+    segments over a cluster of CTAs a strip (8x to 16x the CTAs of one
+    CTA a strip) and the unembedding walks 768 strips."""
+    ctas = {(kdim, n): TBSM.launch_plan(32, kdim, n, bk, 132).ctas
+            for kdim, n, bk, bn in SERVE_SHAPES[:5]}
+    assert ctas == {(576, 576): 72, (576, 192): 24, (576, 1536): 192,
+                    (1536, 576): 144, (576, 49152): 768}
+
+
 # ---------------------------------------------------------------------------
 # Decode attention
 # ---------------------------------------------------------------------------
@@ -323,6 +364,74 @@ def test_matmul_kernels_match_plain_on_gpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("kdim,n,bk,bn", SERVE_SHAPES)
+def test_matmul_rows_bitwise_independent_of_m_on_gpu(kdim, n, bk, bn,
+                                                     transpose):
+    """Rows of M = 1 ... 1024 are bitwise the rows of the M = 1024
+    product, at rho = 0.5 on an un-masked W, in every regime the kernel
+    admits at each M: the walk, and the split at each cluster size the
+    segment count allows (32- and 64-row tiles alike); the full product
+    agrees with the plain version."""
+    g = _card()
+    fn = TBSM.block_sparse_matmul_t if transpose else TBSM.block_sparse_matmul
+    name = "bsmm_transposed" if transpose else "bsmm_forward"
+    w = torch.randn(kdim, n, generator=g, device="cuda")
+    keep = (torch.rand(-(-kdim // bk), -(-n // bn), generator=g,
+                       device="cuda") >= 0.5).float()
+    x = torch.randn(max(ROWS), n if transpose else kdim, generator=g,
+                    device="cuda")
+    full = fn(x, w, keep, bk, bn)
+    assert _rel(full, TBSM.block_sparse_matmul_plain(
+        x, w, keep, bk, bn, transpose)) <= 1e-4
+    c, bc = (n, bn) if transpose else (kdim, bk)
+    nseg = TBSM.segments(c, bc)[2]
+    # the kernel's split takes clusters of up to 16 CTAs, 4 segments each
+    clusters = [0] + [cs for cs in (8, TBSM.CLUSTER_MAX)
+                      if cs <= nseg <= 4 * cs]
+    ran = set()
+    for m in ROWS:
+        for cs in clusters:
+            got = TBSM._run(fn, name, x[:m], w, keep, bk, bn, transpose,
+                            cluster=cs)
+            assert torch.equal(got, full[:m]), (m, cs)
+            ran.add(bool(cs))
+    # both regimes ran wherever the kernel admits a split (every shape
+    # but the transposed unembedding's 512-segment contraction)
+    assert ran == ({False, True} if nseg <= 4 * TBSM.CLUSTER_MAX
+                   else {False})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transpose", [False, True])
+def test_matmul_strip_straddling_kept_and_dropped_tiles_on_gpu(transpose):
+    """Mask tiles of 40 columns (rows, transposed) cut the kernel's
+    64-wide strips; W is not pre-masked, so the mask must mask."""
+    g = _card()
+    kdim, n, bk, bn = (200, 96, 40, 32) if transpose else (96, 200, 32, 40)
+    fn = TBSM.block_sparse_matmul_t if transpose else TBSM.block_sparse_matmul
+    w = torch.randn(kdim, n, generator=g, device="cuda")
+    keep = torch.zeros(-(-kdim // bk), -(-n // bn), device="cuda")
+    if transpose:
+        keep[0::2, :] = 1.0      # output tiles 0, 2, 4 kept
+        keep[1, 1] = 1.0         # output tile 1 live in one segment only
+    else:
+        keep[:, 0::2] = 1.0
+        keep[1, 1] = 1.0
+    for m in (3, 40, 100):
+        x = torch.randn(m, n if transpose else kdim, generator=g,
+                        device="cuda")
+        y = fn(x, w, keep, bk, bn)
+        assert _rel(y, TBSM.block_sparse_matmul_plain(
+            x, w, keep, bk, bn, transpose)) <= 1e-4
+        dense = x @ (w.T if transpose else w)
+        assert _rel(y, dense) > 0.1          # the mask changed the result
+        dropped = (keep.sum(1) if transpose else keep.sum(0)) == 0
+        cols = torch.repeat_interleave(dropped, bk if transpose else bn)
+        assert float(y[:, cols[:y.shape[1]]].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
 def test_attention_kernels_match_plain_on_gpu():
     g = _card()
     for b, s, h, hkv, hd, window, hm in [(3, 40, 6, 3, 8, None, [1, 0, 1]),
@@ -347,6 +456,30 @@ def test_attention_kernels_match_plain_on_gpu():
         got = TFP.flash_prefill(q, k, v, causal, window, t_valid, hmt)
         assert _rel(got, TFP.flash_prefill_plain(q, k, v, causal, window,
                                                  t_valid, hmt)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group,hd", [(4, 64), (7, 128), (1, 40)])
+@pytest.mark.parametrize("causal,window,t_valid", [(True, None, 37),
+                                                   (True, 9, 50),
+                                                   (False, 13, 29)])
+def test_prefill_groups_and_head_dims_match_plain_on_gpu(group, hd, causal,
+                                                         window, t_valid):
+    """granite-3-2b's (G = 4, hd = 64) and qwen2-7b's (G = 7, hd = 128)
+    head layouts, and a head_dim that is no multiple of 32, with ragged
+    t_valid, windows and a dead KV head; reruns bitwise identical."""
+    g = _card()
+    b, s, hkv = 3, 50, 2
+    q = torch.randn(b, s, hkv * group, hd, generator=g, device="cuda")
+    k = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+    v = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+    hm = torch.tensor([1.0, 0.0], device="cuda")
+    got = TFP.flash_prefill(q, k, v, causal, window, t_valid, hm)
+    want = TFP.flash_prefill_plain(q, k, v, causal, window, t_valid, hm)
+    assert _rel(got, want) <= 1e-4
+    assert float(got[:, :, group:].abs().max()) == 0.0
+    assert torch.equal(got, TFP.flash_prefill(q, k, v, causal, window,
+                                              t_valid, hm))
 
 
 @pytest.mark.gpu
