@@ -17,8 +17,10 @@ Phases (any failure exits non-zero and prints no result line):
                step's matmul by serving shape (launches a step, ms, bound,
                torch.matmul) and the same products at the prefill wave's
                M = 1024 against torch.matmul (``wave_ms``,
-               ``wave_library_ms``); prefill also at G = 4 / hd = 64 and
-               G = 7 / hd = 128 with ragged t_valid, windows, a dead head;
+               ``wave_library_ms``); decode attention also timed at a long
+               cache (B = 32, S = 2048, pos in [1024, 2047], ``long_*``);
+               prefill also at G = 4 / hd = 64 and G = 7 / hd = 128 with
+               ragged t_valid, windows, a dead head;
   4. main    — 5 synchronous fleet rounds: 10,000 clients (100 x 100 cells),
                the paper's 784-60-20-10 DNN, kernel="fused"; per-round
                metrics and wall time, launch counts (each > 0), and a second
@@ -398,22 +400,52 @@ def sdpa(q, k, v, valid):
                                           enable_gqa=True)
 
 
+def time_decode(q, k, v, pos, what: str, card: str) -> dict:
+    """Device, call, plain and SDPA times of decode attention on these
+    inputs (every head live, no window), with its byte bound, on one log
+    line."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    b, s = k.shape[0], k.shape[1]
+    ms = device_ms(lambda: DA.decode_attention(q, k, v, pos), 50,
+                   ("decode_kernel",))
+    call_ms = cuda_ms(lambda: DA.decode_attention(q, k, v, pos), 50)
+    plain_ms = device_ms(lambda: DA.decode_attention_plain(q, k, v, pos), 20)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    valid = (torch.arange(s, device="cuda")[None, :]
+             <= pos[:, None])[:, None, None, :]
+    lib_err = rel_err(sdpa(qs, ks, vs, valid)[:, :, 0],
+                      DA.decode_attention_plain(q, k, v, pos))[1]
+    lib_ms = device_ms(lambda: sdpa(qs, ks, vs, valid), 50)
+    keys = float((torch.clamp_max(pos, s - 1) + 1).sum()) * SERVE_KV
+    nbytes = 4.0 * (2 * q.numel() + 2 * keys * SERVE_HD) + 4.0 * b
+    ops = 4.0 * keys * SERVE_GROUP * SERVE_HD
+    bound, bound_by = bound_ms(nbytes, ops)
+    log(f"  decode_attention {what}: {ms:.4f} ms kernel on the device "
+        f"({call_ms:.4f} ms a call), {plain_ms:.4f} ms plain, {lib_ms:.4f} "
+        f"ms sdpa (rel err vs plain {lib_err:.1e}), bound {bound:.6f} ms "
+        f"({bound_by}, {nbytes / 1e6:.1f} MB) [{card}]")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=bound_by)
+
+
 def check_decode(card: str) -> dict:
     """B = 32 against caches of 128 and 2048, ragged pos with 0 and S - 1,
     a dead head, a window, rows whose window lies past the cache; timed at
     the serving shape (S = 128, pos as the engine's 32 + 32 requests
-    reach)."""
+    reach) and at a long cache (S = 2048, pos uniform in [1024, 2047]:
+    ~75 MB of valid K/V, more than the L2 holds)."""
     import torch
     from repro_torch.kernels import decode_attention as DA
     g = torch.Generator(device="cuda").manual_seed(21)
     b, h = SERVE_BATCH, SERVE_KV * SERVE_GROUP
 
-    def inputs(s, pos_hi):
+    def inputs(s, pos_hi, pos_lo=0):
         q = torch.randn(b, h, SERVE_HD, generator=g, device="cuda")
         k = torch.randn(b, s, SERVE_KV, SERVE_HD, generator=g, device="cuda")
         v = torch.randn(b, s, SERVE_KV, SERVE_HD, generator=g, device="cuda")
-        pos = torch.randint(0, pos_hi, (b,), generator=g, device="cuda")
-        pos[0], pos[1] = 0, pos_hi - 1
+        pos = torch.randint(pos_lo, pos_hi, (b,), generator=g, device="cuda")
+        pos[0], pos[1] = pos_lo, pos_hi - 1
         return q, k, v, pos
 
     dead = torch.tensor([1.0, 0.0, 1.0], device="cuda")
@@ -436,30 +468,17 @@ def check_decode(card: str) -> dict:
             f"rel={rel:.3e} (tol {TOL})")
         if rel > TOL:
             raise AssertionError("decode_attention disagrees")
-    q, k, v, pos = inputs(SERVE_PAGE, SERVE_PROMPT + SERVE_NEW - 1)
-    ms = device_ms(lambda: DA.decode_attention(q, k, v, pos), 50,
-                   ("decode_kernel",))
-    call_ms = cuda_ms(lambda: DA.decode_attention(q, k, v, pos), 50)
-    plain_ms = device_ms(lambda: DA.decode_attention_plain(q, k, v, pos), 20)
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    valid = (torch.arange(SERVE_PAGE, device="cuda")[None, :]
-             <= pos[:, None])[:, None, None, :]
-    lib_err = rel_err(sdpa(qs, ks, vs, valid)[:, :, 0],
-                      DA.decode_attention_plain(q, k, v, pos))[1]
-    lib_ms = device_ms(lambda: sdpa(qs, ks, vs, valid), 50)
-    keys = float((pos + 1).sum()) * SERVE_KV
-    nbytes = 4.0 * (2 * q.numel() + 2 * keys * SERVE_HD) + 4.0 * b
-    ops = 4.0 * keys * SERVE_GROUP * SERVE_HD
-    bound, bound_by = bound_ms(nbytes, ops)
-    log(f"  decode_attention (B={b}, S={SERVE_PAGE}, pos < "
-        f"{SERVE_PROMPT + SERVE_NEW - 1}): {ms:.4f} ms kernel on the device "
-        f"({call_ms:.4f} ms a call), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms sdpa (rel err vs plain "
-        f"{lib_err:.1e}), bound {bound:.6f} ms ({bound_by}) [{card}]")
+    serve = time_decode(*inputs(SERVE_PAGE, SERVE_PROMPT + SERVE_NEW - 1),
+                        f"(B={b}, S={SERVE_PAGE}, pos < "
+                        f"{SERVE_PROMPT + SERVE_NEW - 1})", card)
+    long = time_decode(*inputs(2048, 2048, 1024),
+                       f"long cache (B={b}, S=2048, pos in [1024, 2047])",
+                       card)
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:88",
-                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+                max_abs_err=worst, **serve,
+                **{f"long_{key}": val for key, val in long.items()})
 
 
 def check_prefill(card: str) -> dict:

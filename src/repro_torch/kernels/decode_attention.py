@@ -9,10 +9,15 @@ zeros; so does a row with no valid key (a window past the cache's end).
 Returns (B, H, hd) float32.
 
 On the card ``decode_attention`` launches ``csrc/decode_attention.cu``
-(one CTA per (row, KV head), online softmax over the row's own valid keys
-only, dead heads read nothing), counted in ``decode_attention.launches``;
-on the CPU it runs ``decode_attention_plain``, the reference's oracle
-(``repro.kernels.ref.decode_attention``) in plain PyTorch.
+(split-KV: chunks of 16 keys at absolute positions spread over the warps
+of a cluster of up to 8 CTAs per (row, KV head), folded in an order set
+by key positions and S alone, so a row's bits do not depend on the batch;
+dead heads and rows with no valid key read nothing), counted in
+``decode_attention.launches``; on the CPU it runs
+``decode_attention_plain``, the reference's oracle
+(``repro.kernels.ref.decode_attention``) in plain PyTorch.  The kernel
+reads a float32 ``head_mask`` as it is, so a call launches nothing but
+the kernel.
 """
 
 from __future__ import annotations
@@ -101,8 +106,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_GROUP}), cache length {s}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     pos = pos.to(torch.int32).contiguous()
-    hm = torch.ones((hkv,), dtype=torch.int32, device=q.device) \
-        if head_mask is None else (head_mask > 0).to(torch.int32).contiguous()
+    hm = None if head_mask is None \
+        else head_mask.to(torch.float32).contiguous()
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
@@ -110,8 +115,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.decode_attention(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(pos),
-        build.ptr(hm), build.ptr(out), b, s, h, hkv, hd,
-        0 if window is None else int(window), hd ** -0.5,
+        None if hm is None else build.ptr(hm), build.ptr(out), b, s, h,
+        hkv, hd, 0 if window is None else int(window), hd ** -0.5,
         ctypes.c_void_p(stream))
     build.check(lib, code, "decode_attention")
     decode_attention.launches += 1

@@ -459,6 +459,46 @@ def test_attention_kernels_match_plain_on_gpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [40, 128, 2048])
+@pytest.mark.parametrize("group,hd", [(3, 64), (4, 64), (7, 128), (1, 40)])
+def test_decode_rows_bitwise_independent_of_batch_on_gpu(group, hd, s):
+    """smollm-135m's (G = 3, hd = 64), granite-3-2b's (4, 64), qwen2-7b's
+    (7, 128) and a head_dim that is no multiple of 32, at caches shorter
+    than a chunk of keys' multiple (40), at the serving page (128) and long
+    (2048, a cluster of CTAs a row): a row's output is bitwise the same in
+    a batch of 32, of 8 and alone, and on a rerun, and within 1e-4 of the
+    plain version; rows at pos = 0, pos >= S, windows (one past the
+    cache's end: zeros) and a dead head."""
+    g = _card()
+    b, hkv = 32, 2
+    q = torch.randn(b, hkv * group, hd, generator=g, device="cuda")
+    k = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+    v = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+    pos = torch.randint(0, s, (b,), generator=g, device="cuda")
+    pos[0], pos[1], pos[2], pos[3] = 0, s - 1, s + 3, s + 200
+    dead = torch.tensor([0.0, 1.0], device="cuda")
+    for window, hm in [(None, None), (None, dead), (s // 3 + 1, None),
+                       (50, dead)]:
+        full = TDA.decode_attention(q, k, v, pos, window, hm)
+        assert _rel(full, TDA.decode_attention_plain(q, k, v, pos, window,
+                                                     hm)) <= 1e-4
+        assert torch.equal(full, TDA.decode_attention(q, k, v, pos, window,
+                                                      hm))
+        assert torch.equal(TDA.decode_attention(q[8:16], k[8:16], v[8:16],
+                                                pos[8:16], window, hm),
+                           full[8:16])
+        for row in (0, 1, 2, 3, 17, 31):
+            one = slice(row, row + 1)
+            assert torch.equal(TDA.decode_attention(q[one], k[one], v[one],
+                                                    pos[one], window, hm),
+                               full[one]), (window, row)
+        if hm is not None:
+            assert float(full[:, :group].abs().max()) == 0.0
+        if window == 50:   # row 3's window lies past the cache's end
+            assert float(full[3].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("group,hd", [(4, 64), (7, 128), (1, 40)])
 @pytest.mark.parametrize("causal,window,t_valid", [(True, None, 37),
                                                    (True, 9, 50),
