@@ -13,7 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
                device times from torch.profiler (the kernel's own launches,
                the plain version's and, where one exists, a library call's
                device ops), beside the kernel call's CUDA-event time, which
-               includes the host's dispatch (``call_ms``); the decode
+               includes the host's dispatch (``call_ms``); the fused
+               call's device time by pass (every launch the wrapper
+               records, matched one for one by the profiler) beside the
+               two-pass design's floor; the decode
                step's matmul by serving shape (launches a step, ms, bound,
                torch.matmul) and the same products at the prefill wave's
                M = 1024 against torch.matmul (``wave_ms``,
@@ -154,7 +157,11 @@ def check_tile_norms(params, card: str) -> dict:
                 library_ms=None)
 
 
-FUSED_KERNELS = ("masked_rows_kernel", "loss_kernel", "dw_partial_kernel",
+# every csrc kernel the fused call can launch; fused_split checks that each
+# launch the wrapper records is one of these and that the profiler saw
+# exactly those launches
+FUSED_KERNELS = ("wide_rows_kernel", "masked_rows_kernel", "loss_kernel",
+                 "wide_dw_kernel", "dw_partial_kernel",
                  "reduce_segments_kernel")
 
 
@@ -180,7 +187,79 @@ def fused_bound_ms(params, x, keeps) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_fused(params, data, card: str) -> dict:
+def fused_floor_ms(params, x, keeps) -> tuple[float, float]:
+    """The floor of the call's two-pass design (row passes, then dW passes
+    over row segments): every MAC of the dense forward, dW and (layers > 0)
+    dA products at the float32 peak; x read twice (forward and dW), each
+    layer's z and dz workspace written once and read once, the keeps read
+    twice and the dW partials written and read once, at the HBM rate.
+    Returns (ops ms, bytes ms)."""
+    from repro_torch.kernels import fleet_fused as FF
+    c, batch, _ = x.shape
+    rows = c * batch
+    nseg = FF.segments(rows)[1]
+    macs = 0.0
+    nbytes = 2 * x.numel() * 4 + rows * 8 + c * 4 * 2
+    for l, k in enumerate(keeps):
+        kdim, ndim = params[f"layer{l}"]["w"].shape
+        macs += rows * kdim * ndim * (3 if l > 0 else 2)
+        nbytes += (4 * rows * ndim * 4 + 2 * k.numel() * 4
+                   + 2 * nseg * (kdim + 1) * ndim * 4
+                   + 2 * (kdim * ndim + ndim) * 4)
+    return 2 * macs / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def fused_split(call, iters: int, card: str, passes=None) -> dict:
+    """Device ms of one fused call by pass, from torch.profiler over
+    ``iters`` warm calls.  The wrapper records the (kernel, pass) of each
+    launch it makes (``passes`` gives them for another launch sequence);
+    every device op the profiler sees must be those launches, in that
+    order, each of a kernel in FUSED_KERNELS, so no launch is left out of
+    the sum or counted twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fleet_fused as FF
+    call()
+    torch.cuda.synchronize()
+    if passes is None:
+        passes = FF.fused_fleet_grads.last_passes
+    stray = sorted({k for k, _ in passes} - set(FUSED_KERNELS))
+    if stray:
+        raise AssertionError(f"FUSED_KERNELS lacks {stray}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if len(ops) != iters * len(passes):
+        raise AssertionError(f"profiler saw {len(ops)} device ops in "
+                             f"{iters} calls of {len(passes)} launches")
+    by_pass = {label: 0.0 for _, label in passes}
+    by_kernel = {k: 0.0 for k, _ in passes}
+    for i, e in enumerate(ops):
+        kernel, label = passes[i % len(passes)]
+        if kernel not in e.name:
+            raise AssertionError(f"launch {i % len(passes)} ({label}) ran "
+                                 f"{e.name[:80]}, not {kernel}")
+        us = e.time_range.elapsed_us() / iters
+        by_pass[label] += us / 1e3
+        by_kernel[kernel] += us / 1e3
+    total = sum(by_pass.values())
+    log(f"  fused call split ({len(passes)} launches a call, {iters} calls "
+        f"profiled, {total:.4f} ms a call) [{card}]:")
+    for label, ms in by_pass.items():
+        log(f"    {label:12s} {ms:8.4f} ms  {100 * ms / total:5.1f}%")
+    log("    by kernel: " + ", ".join(f"{k} {ms:.4f} ms"
+                                      for k, ms in by_kernel.items()))
+    return by_pass
+
+
+def fused_cases(params, data) -> list:
+    """(name, wrapper arguments) of phase 3's fused cases at the slice's
+    model and fleet; the second is the timed one, the last has C = 1001."""
     import torch
     from repro_torch.kernels import fleet_fused as FF
     dev = data["x"].device
@@ -200,11 +279,18 @@ def check_fused(params, data, card: str) -> dict:
 
     w_zero = w_mixed.clone()
     w_zero[7] = 0.0
-    cases = [case("rho=0", torch.zeros_like(rho_mixed), w_mixed),
-             case("rho~U[0,0.7]", rho_mixed, w_mixed),
-             case("one client prunes all", rho_mixed, w_mixed, kill=3),
-             case("zero-weight client", rho_mixed, w_zero),
-             case("C=1001 (not a tile multiple)", rho_mixed, w_mixed, n=1001)]
+    return [case("rho=0", torch.zeros_like(rho_mixed), w_mixed),
+            case("rho~U[0,0.7]", rho_mixed, w_mixed),
+            case("one client prunes all", rho_mixed, w_mixed, kill=3),
+            case("zero-weight client", rho_mixed, w_zero),
+            case("C=1001 (not a tile multiple)", rho_mixed, w_mixed, n=1001)]
+
+
+def check_fused(params, data, card: str) -> dict:
+    import torch
+    from repro_torch.kernels import fleet_fused as FF
+    c = data["x"].shape[0]
+    cases = fused_cases(params, data)
     worst = 0.0
     for name, args in cases:
         grads, losses = FF.fused_fleet_grads(*args)
@@ -221,13 +307,18 @@ def check_fused(params, data, card: str) -> dict:
         if rel > TOL or not torch.isfinite(losses).all():
             raise AssertionError(f"fused kernel disagrees: {name}")
     args = cases[1][1]
-    ms = device_ms(lambda: FF.fused_fleet_grads(*args), 10, FUSED_KERNELS)
+    split = fused_split(lambda: FF.fused_fleet_grads(*args), 10, card)
+    ms = sum(split.values())
     call_ms = cuda_ms(lambda: FF.fused_fleet_grads(*args), 10)
     plain_ms = device_ms(lambda: FF.fused_grads_plain(*args), 3)
     bound, bound_by = fused_bound_ms(params, args[1], args[3])
+    floor_ops, floor_bytes = fused_floor_ms(params, args[1], args[3])
     log(f"  fused_fleet_grads (C={c}, rho~U[0,0.7]): {ms:.3f} ms kernels on "
         f"the device ({call_ms:.3f} ms a call), {plain_ms:.3f} ms plain, "
-        f"bound {bound:.4f} ms ({bound_by}) [{card}]")
+        f"bound {bound:.4f} ms ({bound_by}; kept tiles, x read once); "
+        f"two-pass floor {max(floor_ops, floor_bytes):.4f} ms (dense MACs "
+        f"{floor_ops:.4f} ms, x read twice and workspaces {floor_bytes:.4f}"
+        f" ms) [{card}]")
     return dict(name="fleet_fused_grads", route="cuda",
                 source="src/repro_torch/kernels/csrc/fleet_fused.cu",
                 replaces="src/repro/kernels/fleet_fused.py:331",

@@ -19,11 +19,15 @@ fused_grads_pallas``; its semantics are those of ``fused_grads_xla``:
   output-tile-parallel dW passes over fixed row segments, summed in order.
   No float atomics: the result repeats bit for bit.  At the slice (10,000
   clients x batch 8, 784-60-20-10) the call is compute-bound: ~15.7 GFLOP
-  of float32 FMA against ~0.28 GB moved.
+  of float32 FMA, 94% of it in the input layer.  That layer's forward and
+  dW passes (``wide_rows_kernel``, ``wide_dw_kernel``) stage their operands
+  by cp.async into a ring and give each thread an 8 x 4 register tile; the
+  narrow layers keep the first design's 4 x 4 passes.
 
 ``fused_fleet_grads`` is the wrapper: the kernel for CUDA tensors (counted
-in ``fused_fleet_grads.launches``, one per call), the plain version for
-CPU tensors.
+in ``fused_fleet_grads.launches``, one per call; the csrc kernel and pass
+of each of the call's launches in ``fused_fleet_grads.last_passes``), the
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -37,10 +41,13 @@ from repro_torch.core import pruning
 from repro_torch.kernels import build
 
 __all__ = ["layer_weights", "grads_tree", "layer_norm_states", "layer_keeps",
-           "fused_grads_plain", "fused_fleet_grads"]
+           "fused_grads_plain", "fused_fleet_grads", "segments"]
 
-_SEGMENTS = 128   # dW row segments per layer (fixed: the sum order is fixed)
-_ROWS_STAGED = 32  # rows the dW pass stages per step (csrc RC)
+# dW row segments per layer, fixed so the sum order is fixed: at the slice's
+# 80,000 rows the input layer's 7 x 150 dW CTAs fill 4 waves of 2 CTAs on
+# each of an H100's 132 SMs
+_SEGMENTS = 150
+_ROWS_STAGED = 32  # rows a dW pass stages per step (csrc RC and DR)
 
 
 def layer_weights(params: dict) -> tuple[list[torch.Tensor],
@@ -167,11 +174,20 @@ def _lib() -> ctypes.CDLL:
         lib.ff_masked_rows.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.ff_loss.argtypes = [p] * 4 + [i] * 3 + [p]
         lib.ff_dw_partial.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.ff_wide_rows.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.ff_wide_dw.argtypes = [p] * 5 + [i] * 7 + [p]
         lib.ff_reduce.argtypes = [p, p, i, ctypes.c_int64, p]
         for fn in (lib.ff_masked_rows, lib.ff_loss, lib.ff_dw_partial,
-                   lib.ff_reduce):
+                   lib.ff_wide_rows, lib.ff_wide_dw, lib.ff_reduce):
             fn.restype = ctypes.c_int
     return lib
+
+
+def segments(rows: int) -> tuple[int, int]:
+    """(rows a segment, segments) of the dW passes: fixed by the row count
+    alone, so the sum order, and the bits, do not depend on the card."""
+    seg_rows = max(_ROWS_STAGED, -(-rows // _SEGMENTS))
+    return seg_rows, -(-rows // seg_rows)
 
 
 def _check_shapes(ws, bs, x, y, keeps, weights, block) -> None:
@@ -228,49 +244,56 @@ def _fused_cuda(params, x, y, keeps, weights, block):
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = build.ptr
     null = ctypes.c_void_p(None)
+    passes = []
+
+    def run(fn, kernel, label, *args):
+        build.check(lib, fn(*args, stream), f"{fn.__name__}({label})")
+        passes.append((kernel, label))
 
     acts = [x.reshape(rows, d).contiguous()]
     for l in range(nl):
         kdim, ndim = ws[l].shape
         z = torch.empty((rows, ndim), dtype=torch.float32, device=dev)
-        code = lib.ff_masked_rows(ptr(acts[-1]), ptr(ws[l]), ptr(keeps[l]),
-                                  ptr(bs[l]), null, ptr(z), rows, kdim, ndim,
-                                  batch, block, int(l < nl - 1), 0, stream)
-        build.check(lib, code, f"ff_masked_rows(forward layer {l})")
+        if l == 0:
+            run(lib.ff_wide_rows, "wide_rows_kernel", "forward L0",
+                ptr(acts[-1]), ptr(ws[0]), ptr(keeps[0]), ptr(bs[0]), ptr(z),
+                rows, kdim, ndim, batch, block, int(nl > 1))
+        else:
+            run(lib.ff_masked_rows, "masked_rows_kernel", f"forward L{l}",
+                ptr(acts[-1]), ptr(ws[l]), ptr(keeps[l]), ptr(bs[l]), null,
+                ptr(z), rows, kdim, ndim, batch, block, int(l < nl - 1), 0)
         acts.append(z)
 
     n_classes = ws[-1].shape[1]
     dz = torch.empty((rows, n_classes), dtype=torch.float32, device=dev)
     losses = torch.empty((c,), dtype=torch.float32, device=dev)
-    code = lib.ff_loss(ptr(acts[-1]), ptr(y64), ptr(dz), ptr(losses), c, batch,
-                       n_classes, stream)
-    build.check(lib, code, "ff_loss")
+    run(lib.ff_loss, "loss_kernel", "loss", ptr(acts[-1]), ptr(y64), ptr(dz),
+        ptr(losses), c, batch, n_classes)
 
-    seg_rows = max(_ROWS_STAGED, -(-rows // _SEGMENTS))
-    nseg = -(-rows // seg_rows)
+    seg_rows, nseg = segments(rows)
     layer_grads: list = [None] * nl
     for l in reversed(range(nl)):
         kdim, ndim = ws[l].shape
         partial = torch.empty((nseg, kdim + 1, ndim), dtype=torch.float32,
                               device=dev)
-        code = lib.ff_dw_partial(ptr(acts[l]), ptr(dz), ptr(weights),
-                                 ptr(keeps[l]), ptr(partial), rows, kdim, ndim,
-                                 batch, block, seg_rows, nseg, stream)
-        build.check(lib, code, f"ff_dw_partial(layer {l})")
+        dw_pass = ((lib.ff_wide_dw, "wide_dw_kernel") if l == 0 else
+                   (lib.ff_dw_partial, "dw_partial_kernel"))
+        run(*dw_pass, f"dW L{l}", ptr(acts[l]), ptr(dz), ptr(weights),
+            ptr(keeps[l]), ptr(partial), rows, kdim, ndim, batch, block,
+            seg_rows, nseg)
         summed = torch.empty((kdim + 1, ndim), dtype=torch.float32,
                              device=dev)
-        code = lib.ff_reduce(ptr(partial), ptr(summed), nseg,
-                             (kdim + 1) * ndim, stream)
-        build.check(lib, code, f"ff_reduce(layer {l})")
+        run(lib.ff_reduce, "reduce_segments_kernel", f"reduce L{l}",
+            ptr(partial), ptr(summed), nseg, (kdim + 1) * ndim)
         layer_grads[l] = (summed[:kdim], summed[kdim])
         if l > 0:
             dz_prev = torch.empty((rows, kdim), dtype=torch.float32,
                                   device=dev)
-            code = lib.ff_masked_rows(ptr(dz), ptr(ws[l]), ptr(keeps[l]), null,
-                                      ptr(acts[l]), ptr(dz_prev), rows, ndim,
-                                      kdim, batch, block, 0, 1, stream)
-            build.check(lib, code, f"ff_masked_rows(backward layer {l})")
+            run(lib.ff_masked_rows, "masked_rows_kernel", f"backward L{l}",
+                ptr(dz), ptr(ws[l]), ptr(keeps[l]), null, ptr(acts[l]),
+                ptr(dz_prev), rows, ndim, kdim, batch, block, 0, 1)
             dz = dz_prev
+    fused_fleet_grads.last_passes = tuple(passes)
     return grads_tree(layer_grads), losses
 
 
@@ -290,3 +313,5 @@ def fused_fleet_grads(params: dict, x: torch.Tensor, y: torch.Tensor,
 
 
 fused_fleet_grads.launches = 0
+# (csrc kernel name, pass) of each launch of the last kernel call, in order
+fused_fleet_grads.last_passes = ()

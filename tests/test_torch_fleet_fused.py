@@ -197,6 +197,19 @@ def test_misshapen_operands_raise(case):
     assert TFF.fused_fleet_grads.launches == before
 
 
+@pytest.mark.parametrize("rows", [1, 31, 32, 1000, 8008, 80000, 10 ** 6])
+def test_segments_cover_rows_in_fixed_order(rows):
+    """The dW passes' row segments depend on the row count alone (never on
+    the card), cover every row once, and are never shorter than a staged
+    chunk unless one segment holds every row."""
+    seg_rows, nseg = TFF.segments(rows)
+    assert nseg * seg_rows >= rows > (nseg - 1) * seg_rows
+    assert nseg <= TFF._SEGMENTS
+    assert seg_rows >= TFF._ROWS_STAGED
+    if rows == 80000:  # the slice: 7 x 150 input-layer dW CTAs
+        assert (seg_rows, nseg) == (534, 150)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(_MISSHAPEN) + ["y_on_cpu"])
 def test_cuda_kernel_refuses_bad_operands_on_gpu(case):
@@ -213,35 +226,104 @@ def test_cuda_kernel_refuses_bad_operands_on_gpu(case):
     torch.cuda.synchronize()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("c", [13, 64, 1001])
-def test_cuda_kernel_matches_plain_on_gpu(c):
-    """The CUDA kernel against the plain version on the card (float32;
-    1e-4: different float32 summation orders)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    params, x, y, rho, w = _problem(c=c, sizes=(784, 60, 20, 10))
+def _on_grid(v, step, bound):
+    return np.clip(np.round(v / step), -bound, bound) * step
+
+
+def _card_args(c, batch, block, sizes=(784, 60, 20, 10)):
+    """Wrapper arguments for ``_problem`` on the card (float32): client 1
+    keeps nothing, clients 0 and c // 2 weigh nothing.
+
+    x, the weights and biases of the layers that a ReLU follows are put on
+    dyadic grids (x on quarters in [-1, 1], those weights on 1/64ths in
+    [-1/8, 1/8]) on which every partial sum of their forward products is
+    exact in float32, in any order.  Both sides then see the same ReLU
+    gates: with 80,000 rows some pre-activations otherwise lie within
+    float32 rounding of zero, and a gate that two summation orders set
+    differently moves dW by a whole row's term."""
+    params, x, y, rho, w = _problem(c=c, batch=batch, sizes=sizes)
+    x = _on_grid(x, 0.25, 4)
+    fan = 1
+    for l in range(len(params) - 1):  # the layers a ReLU follows
+        step = 2.0 ** -(2 + 6 * (l + 1))  # the grid of this layer's sums
+        params[f"layer{l}"] = {
+            "w": _on_grid(params[f"layer{l}"]["w"], 1 / 64, 8 // fan),
+            "b": _on_grid(params[f"layer{l}"]["b"], step, 2 / step)}
+        fan *= 2
     dev = "cuda"
     tp = {k: {n: t.to(dev) for n, t in d.items()}
           for k, d in _torch_tree(params, torch.float32).items()}
-    keeps = TFF.layer_keeps(TFF.layer_norm_states(tp, BLOCK),
+    keeps = TFF.layer_keeps(TFF.layer_norm_states(tp, block),
                             torch.as_tensor(rho, dtype=torch.float32,
                                             device=dev))
     for k in keeps:  # client 1 keeps nothing
         k[1] = 0.0
-    args = (tp, torch.as_tensor(x, dtype=torch.float32, device=dev),
+    return (tp, torch.as_tensor(x, dtype=torch.float32, device=dev),
             torch.as_tensor(y, device=dev), keeps,
-            torch.as_tensor(w, dtype=torch.float32, device=dev), BLOCK)
+            torch.as_tensor(w, dtype=torch.float32, device=dev), block)
+
+
+def _assert_matches_plain(args):
+    """One kernel call against the plain version run in float64 on the
+    same inputs (1e-4: float32 sums of the backward in another order)."""
     before = TFF.fused_fleet_grads.launches
     g, losses = TFF.fused_fleet_grads(*args)
     torch.cuda.synchronize()
     assert TFF.fused_fleet_grads.launches == before + 1
-    g_ref, l_ref = TFF.fused_grads_plain(*args)
-    torch.testing.assert_close(losses, l_ref, rtol=1e-4, atol=1e-5)
+    params, x, y, keeps, w, block = args
+    g_ref, l_ref = TFF.fused_grads_plain(
+        {k: {n: t.double() for n, t in d.items()} for k, d in params.items()},
+        x.double(), y, [k.double() for k in keeps], w.double(), block)
+    torch.testing.assert_close(losses, l_ref.float(), rtol=1e-4, atol=1e-5)
     for name in g:
         for leaf in ("w", "b"):
-            scale = float(g_ref[name][leaf].abs().max()) + 1e-6
-            torch.testing.assert_close(g[name][leaf], g_ref[name][leaf],
-                                       rtol=1e-4, atol=1e-4 * scale)
+            ref = g_ref[name][leaf].float()
+            scale = float(ref.abs().max()) + 1e-6
+            torch.testing.assert_close(g[name][leaf], ref, rtol=1e-4,
+                                       atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [13, 1001, 10000])
+@pytest.mark.parametrize("batch", [8, 5, 1])
+@pytest.mark.parametrize("block", [4, 8, 16, 32])
+def test_cuda_kernel_matches_plain_on_gpu(block, batch, c):
+    """The CUDA kernel against the plain version on the card at the
+    paper's 784-60-20-10 DNN: every pruning block; batches 5 and 1 put
+    rows of several clients in one thread's 8-row group and in one staged
+    chunk; C = 13 and 1001 are no multiple of any tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _card_args(c, batch, block)
+    _assert_matches_plain(args)
     with pytest.raises(TypeError):
         TFF.fused_fleet_grads(args[0], args[1].double(), *args[2:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [(30, 14, 6, 5), (132, 68, 7)])
+def test_cuda_kernel_unaligned_widths_match_plain_on_gpu(sizes):
+    """Widths that are no multiple of 4 floats take the kernels' 4-byte
+    copies (30, 14); 132 -> 68 spans two k blocks and two column blocks of
+    the input layer's tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _assert_matches_plain(_card_args(37, 5, 4, sizes))
+    _assert_matches_plain(_card_args(37, 8, 8, sizes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block, batch", [(8, 8), (4, 5)])
+def test_cuda_kernel_repeats_bitwise_on_gpu(block, batch):
+    """Two calls on the same inputs give bitwise-equal grads and losses:
+    every sum has a fixed order (no float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _card_args(10000, batch, block)
+    g1, l1 = TFF.fused_fleet_grads(*args)
+    g2, l2 = TFF.fused_fleet_grads(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(l1, l2)
+    for name in g1:
+        for leaf in ("w", "b"):
+            assert torch.equal(g1[name][leaf], g2[name][leaf]), name
