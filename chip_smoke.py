@@ -23,18 +23,25 @@ Phases (any failure exits non-zero and prints no result line):
                ``wave_library_ms``); decode attention also timed at a long
                cache (B = 32, S = 2048, pos in [1024, 2047], ``long_*``);
                prefill also at G = 4 / hd = 64 and G = 7 / hd = 128 with
-               ragged t_valid, windows, a dead head;
+               ragged t_valid, windows, a dead head; the tile norms in
+               both regimes (the fleet's three layers, and smollm-135m's
+               bundle leaves in bfloat16, ``bundle_*``): within 1e-4 of the
+               plain version, bitwise alone / grouped / rerun, timed
+               beside an einsum, the byte bound and an empty launch's
+               device time (``launch_floor_ms``);
   4. main    — 5 synchronous fleet rounds: 10,000 clients (100 x 100 cells),
                the paper's 784-60-20-10 DNN, kernel="fused"; per-round
-               metrics and wall time, launch counts (each > 0), and a second
-               run that must give bitwise-identical losses;
+               metrics and wall time, launch counts (each > 0, the tile
+               norms one a round), and a second run that must give
+               bitwise-identical losses;
   5. card vs CPU — a small fleet from the same numpy draws on the CPU (plain
                versions) and on the card (kernels), compared at 1e-4;
   6. serve   — smollm-135m at full width (random weights from a seed,
                bfloat16, pruned at rho = 0.5 on its tile grid) through
                ServeEngine: 64 requests x (32 prompt + 32 new tokens) on 32
                slots by generate and by generate_prefilled, with launch
-               counts, timings and a profiled decode step; tokens must be
+               counts (the bundle's ranking one tile_norms launch), timings
+               and a profiled decode step; tokens must be
                equal across 32 and 8 slots, to a per-request host loop and
                (up to near-ties) between the two modes, and a 2-layer
                full-width copy must give the same logits on card and CPU.
@@ -119,42 +126,114 @@ def rel_err(a, b) -> tuple[float, float]:
 # Phase 3: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_tile_norms(params, card: str) -> dict:
+def smollm_ranking() -> tuple[list, list]:
+    """smollm-135m's prunable leaves at full width, drawn on the card from
+    a seed in the config's parameter dtype, and their tile grid: what
+    ``make_bundle`` ranks in phase 6."""
     import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import pruning
+    from repro_torch.fleet.task import TransformerTask
+    task = TransformerTask(arch=get_config("smollm-135m"))
+    params = task.init_params(
+        torch.Generator(device="cuda").manual_seed(SERVE_SEED))
+    pairs = [(leaf, blk) for leaf, blk in
+             zip(pruning.flatten(params), task.tile_grid(params))
+             if blk is not None]
+    return [leaf for leaf, _ in pairs], [blk for _, blk in pairs]
+
+
+def norms_regime(what: str, leaves, blocks, iters: int, plain_iters: int,
+                 floor_ms: float, card: str) -> dict:
+    """The tile-norm kernel on one ranking's leaves: every leaf within TOL
+    of the plain version and bitwise equal alone, in the group and on a
+    rerun; then the group call's device time (``ms``) and CUDA-event time
+    (``call_ms``) beside the plain version's, one einsum a leaf on its
+    tiles zero-padded outside the timed call (the library call), the byte
+    bound and the launch floor."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import block_norms as BN
-    ws = [params[f"layer{i}"]["w"] for i in range(len(params))]
-    worst = 0.0
-    for w in ws:
-        got = BN.tile_norms(w, BLOCK, BLOCK)
-        ref = BN.tile_norms_plain(w, BLOCK, BLOCK)
-        torch.cuda.synchronize()
-        diff, rel = rel_err(got, ref)
-        worst = max(worst, diff)
-        log(f"  tile_norms {tuple(w.shape)}: max_abs_err={diff:.3e} "
-            f"rel={rel:.3e} (tol {TOL})")
+
+    got = BN.tile_norms_group(leaves, blocks)
+    again = BN.tile_norms_group(leaves, blocks)
+    ref = BN.tile_norms_group_plain(leaves, blocks)
+    torch.cuda.synchronize()
+    worst = worst_rel = 0.0
+    for w, (bk, bn), g, a, r in zip(leaves, blocks, got, again, ref):
+        diff, rel = rel_err(g, r)
+        worst, worst_rel = max(worst, diff), max(worst_rel, rel)
         if rel > TOL:
-            raise AssertionError(f"tile_norms disagrees at {tuple(w.shape)}")
-    # one round's worth: the three layers
+            raise AssertionError(f"tile_norms disagrees at {tuple(w.shape)}"
+                                 f" ({bk}, {bn}): rel {rel:.3e}")
+        if not torch.equal(g, a):
+            raise AssertionError(f"tile_norms rerun differs at "
+                                 f"{tuple(w.shape)}")
+        if not torch.equal(g, BN.tile_norms(w, bk, bn)):
+            raise AssertionError(f"tile_norms alone differs from the group "
+                                 f"at {tuple(w.shape)}")
+    tiles = sum(g.numel() for g in got)
+    log(f"  tile_norms {what}: {len(leaves)} leaves, {tiles} tiles, "
+        f"max_abs_err={worst:.3e} rel={worst_rel:.3e} (tol {TOL}); alone, "
+        f"grouped and rerun bitwise equal")
+
     def call():
-        return [BN.tile_norms(w, BLOCK, BLOCK) for w in ws]
-    ms = device_ms(call, 50, ("tile_sqnorms_kernel",))
-    call_ms = cuda_ms(call, 50)
-    plain_ms = device_ms(lambda: [BN.tile_norms_plain(w, BLOCK, BLOCK)
-                                  for w in ws], 50)
-    n_in = sum(w.numel() for w in ws)
-    n_out = sum(-(-w.shape[0] // BLOCK) * -(-w.shape[1] // BLOCK) for w in ws)
-    t_bytes = (n_in + n_out) * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * n_in / F32_FLOPS * 1e3
-    log(f"  tile_norms x3 layers: {ms:.4f} ms kernel on the device "
-        f"({call_ms:.4f} ms a call, dispatch included), {plain_ms:.4f} ms "
-        f"plain, bound {max(t_bytes, t_ops):.6f} ms [{card}]")
-    return dict(name="tile_norms", route="cuda",
-                source="src/repro_torch/kernels/csrc/block_norms.cu",
-                replaces="src/repro/kernels/block_norms.py:24",
-                max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+        return BN.tile_norms_group(leaves, blocks)
+    ms = device_ms(call, iters, ("tile_norms_kernel",))
+    call_ms = cuda_ms(call, iters)
+    plain_ms = device_ms(lambda: BN.tile_norms_group_plain(leaves, blocks),
+                         plain_iters)
+    padded = []
+    for w, (bk, bn) in zip(leaves, blocks):
+        wp = F.pad(w, (0, (-w.shape[-1]) % bn, 0, (-w.shape[-2]) % bk))
+        kp, np_ = wp.shape[-2:]
+        padded.append(wp.reshape(tuple(w.shape[:-2])
+                                 + (kp // bk, bk, np_ // bn, bn)))
+    library_ms = device_ms(lambda: [torch.einsum("...ikjl,...ikjl->...ij",
+                                                 v, v) for v in padded],
+                           iters)
+    del padded
+    nbytes = sum(w.numel() * w.element_size() for w in leaves) + 4 * tiles
+    bound, bound_by = bound_ms(nbytes,
+                               2.0 * sum(w.numel() for w in leaves))
+    dtypes = sorted({str(w.dtype).replace("torch.", "") for w in leaves})
+    log(f"  tile_norms {what}: {ms:.5f} ms kernel on the device "
+        f"({call_ms:.5f} ms a call, dispatch included); launch floor "
+        f"{floor_ms:.5f} ms, bound {bound:.6f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB of {'/'.join(dtypes)}); plain "
+        f"{plain_ms:.5f} ms, einsum {library_ms:.5f} ms [{card}]")
+    return dict(max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_tile_norms(params, card: str) -> dict:
+    """Both regimes of the tile norms: the fleet round's ranking (the main
+    path's; the row's own keys) and smollm-135m's bundle (``bundle_*``),
+    beside the device time of an empty launch (``launch_floor_ms``)."""
+    from repro_torch.kernels import block_norms as BN
+    floor_ms = device_ms(BN.empty_launch, 50, ("empty_kernel",))
+    log(f"  launch floor (an empty kernel): {floor_ms:.5f} ms on the device "
+        f"[{card}]")
+    from repro_torch.kernels import fleet_fused as FF
+    ws = [params[f"layer{i}"]["w"] for i in range(len(params))]
+    fleet = norms_regime(f"fleet ({len(ws)} layers, block {BLOCK})", ws,
+                         [(BLOCK, BLOCK)] * len(ws), 50, 50, floor_ms, card)
+    rank_ms = cuda_ms(lambda: FF.layer_norm_states(params, BLOCK), 20)
+    log(f"  the round's whole ranking (layer_norm_states: norms, then a sort "
+        f"and a cumulative sum a layer): {rank_ms:.5f} ms a call, dispatch "
+        f"included [{card}]")
+    leaves, blocks = smollm_ranking()
+    bundle = norms_regime("smollm-135m bundle (auto_tile_grid)", leaves,
+                          blocks, 20, 3, floor_ms, card)
+    del leaves
+    row = dict(name="tile_norms", route="cuda",
+               source="src/repro_torch/kernels/csrc/block_norms.cu",
+               replaces="src/repro/kernels/block_norms.py:24", **fleet)
+    row["max_abs_err"] = max(fleet["max_abs_err"], bundle["max_abs_err"])
+    row["launch_floor_ms"] = floor_ms
+    row.update({f"bundle_{k}": v for k, v in bundle.items()
+                if k != "max_abs_err"})
+    return row
 
 
 # every csrc kernel the fused call can launch; fused_split checks that each
@@ -209,13 +288,46 @@ def fused_floor_ms(params, x, keeps) -> tuple[float, float]:
     return 2 * macs / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def fused_split(call, iters: int, card: str, passes=None) -> dict:
+def warm_profiler() -> None:
+    """One throwaway torch.profiler session around a few launches, so that
+    the profiler's lazy start-up (CUPTI's) happens outside every measured
+    session."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(8):
+            x.mul_(1.0)
+        torch.cuda.synchronize()
+
+
+def split_mismatch(ops, passes, iters: int) -> str:
+    """Why the profiled device ops are not ``iters`` copies of ``passes``
+    in order ("" where they are)."""
+    want = [kernel for _ in range(iters) for kernel, _ in passes]
+    for i, (kernel, e) in enumerate(zip(want, ops)):
+        if kernel not in e.name:
+            return (f"device op {i} (launch {i % len(passes)}, "
+                    f"{passes[i % len(passes)][1]}) ran {e.name[:80]}, "
+                    f"not {kernel}")
+    if len(ops) != len(want):
+        return (f"profiler saw {len(ops)} device ops in {iters} calls of "
+                f"{len(passes)} launches")
+    return ""
+
+
+def fused_split(call, iters: int, card: str, passes=None,
+                sessions: int = 3) -> dict:
     """Device ms of one fused call by pass, from torch.profiler over
     ``iters`` warm calls.  The wrapper records the (kernel, pass) of each
     launch it makes (``passes`` gives them for another launch sequence);
     every device op the profiler sees must be those launches, in that
     order, each of a kernel in FUSED_KERNELS, so no launch is left out of
-    the sum or counted twice."""
+    the sum or counted twice.  A session whose record breaks that (the
+    profiler can drop a device event) is logged and profiled again, at
+    most ``sessions`` times in all; the sum is only ever taken over a
+    complete record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import fleet_fused as FF
@@ -226,24 +338,27 @@ def fused_split(call, iters: int, card: str, passes=None) -> dict:
     stray = sorted({k for k, _ in passes} - set(FUSED_KERNELS))
     if stray:
         raise AssertionError(f"FUSED_KERNELS lacks {stray}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    ops = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    if len(ops) != iters * len(passes):
-        raise AssertionError(f"profiler saw {len(ops)} device ops in "
-                             f"{iters} calls of {len(passes)} launches")
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        why = split_mismatch(ops, passes, iters)
+        if not why:
+            break
+        log(f"  fused call split, profiled session {session} of at most "
+            f"{sessions}: {why}")
+    else:
+        raise AssertionError(f"no complete profiler record in {sessions} "
+                             f"sessions: {why}")
     by_pass = {label: 0.0 for _, label in passes}
     by_kernel = {k: 0.0 for k, _ in passes}
     for i, e in enumerate(ops):
         kernel, label = passes[i % len(passes)]
-        if kernel not in e.name:
-            raise AssertionError(f"launch {i % len(passes)} ({label}) ran "
-                                 f"{e.name[:80]}, not {kernel}")
         us = e.time_range.elapsed_us() / iters
         by_pass[label] += us / 1e3
         by_kernel[kernel] += us / 1e3
@@ -687,6 +802,10 @@ def run_main_path(card: str) -> tuple[list, dict]:
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    if counts["tile_norms"] != cfg.rounds:
+        raise AssertionError(f"{counts['tile_norms']} tile_norms launches in "
+                             f"{cfg.rounds} rounds: the ranking is one a "
+                             f"round")
     losses = [float(m["loss"]) for m in history]
     if not all(abs(v) < float("inf") for v in losses):
         raise AssertionError(f"non-finite losses {losses}")
@@ -969,6 +1088,7 @@ def run_serve(card: str) -> dict:
     bundle = make_bundle(task, params, SERVE_RHO)
     torch.cuda.synchronize()
     t_bundle = time.perf_counter() - t0
+    bundle_launches = counters["tile_norms"].launches
     model = SparseModel(cfg, bundle)
     engine = ServeEngine(model, serve_cfg)
     t0 = time.perf_counter()
@@ -981,9 +1101,13 @@ def run_serve(card: str) -> dict:
 
     live = np.stack([p["head_mask"] for p in model.layers])
     steps = -(-SERVE_REQUESTS // SERVE_BATCH) * (SERVE_PROMPT + SERVE_NEW - 1)
-    log(f"  bundle (tile norms + keeps at rho={SERVE_RHO}) {t_bundle:.2f} s;"
-        f" achieved rho {achieved_rho(bundle):.4f}; live KV heads "
+    log(f"  bundle (tile norms + keeps at rho={SERVE_RHO}) "
+        f"{t_bundle * 1e3:.2f} ms on the host clock, {bundle_launches} tile_norms launch(es); achieved "
+        f"rho {achieved_rho(bundle):.4f}; live KV heads "
         f"{int(live.sum())}/{live.size} [{card}]")
+    if bundle_launches != 1:
+        raise AssertionError(f"the bundle's ranking took {bundle_launches} "
+                             f"tile_norms launches, not 1")
     log(f"  generate: {SERVE_REQUESTS} requests x ({SERVE_PROMPT} prompt + "
         f"{SERVE_NEW} new), {SERVE_BATCH} slots: {t_gen:.2f} s, {steps} "
         f"steps, {t_gen / steps * 1e3:.2f} ms per step, "
@@ -1073,6 +1197,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("[3] kernels against their plain versions")
+    warm_profiler()
     from repro_torch.fleet import build_simulation
     probe = build_simulation(slice_config(rounds=1))
     rows = [check_fused(probe.params, probe.data, card),
@@ -1095,6 +1220,7 @@ def main() -> int:
     serve_counts = run_serve(card)
     for row in serve_rows:
         row["launches"] = serve_counts[row["name"]]
+    rows[1]["bundle_launches"] = serve_counts["tile_norms"]
     rows += serve_rows
 
     print(json.dumps({"kernels": rows}))

@@ -13,9 +13,9 @@ tiles over the last two dims, batch-wise, exactly as the reference does.
 masked params.  Per-leaf state lists follow ``flatten``'s order, which is
 ``jax.tree_util``'s: dict keys sorted, lists by index.
 
-The tile norms come from ``kernels.block_norms.tile_norms``: the CUDA
-kernel for a tensor on the card (one launch per stacked slice), its plain
-version on the CPU.
+The tile norms come from ``kernels.block_norms.tile_norms_group``: for
+tensors on the card one CUDA launch takes every prunable leaf of a
+``block_norm_state`` call, in its own type; on the CPU the plain version.
 """
 
 from __future__ import annotations
@@ -110,8 +110,7 @@ def leaf_blocks(flags: list, block) -> list[Optional[tuple[int, int]]]:
 def block_l2_norms(w: torch.Tensor, block=DEFAULT_BLOCK) -> torch.Tensor:
     """Squared L2 norm of each (bk x bn) tile of a 2-D matrix, in float32
     (ragged edge tiles sum their real elements only)."""
-    bk, bn = _block_pair(block)
-    return _bn.tile_norms(w.to(torch.float32), bk, bn)
+    return _bn.tile_norms(w, *_block_pair(block))
 
 
 def _tile_element_counts(m: int, n: int, block, device) -> torch.Tensor:
@@ -122,15 +121,6 @@ def _tile_element_counts(m: int, n: int, block, device) -> torch.Tensor:
     return rows[:, None] * cols[None, :]
 
 
-def _leaf_tile_norms(leaf: torch.Tensor, block) -> torch.Tensor:
-    """Tile norms over the last two dims; leading dims are batch-wise."""
-    if leaf.ndim == 2:
-        return block_l2_norms(leaf, block)
-    w3 = leaf.reshape((-1,) + tuple(leaf.shape[-2:]))
-    norms = torch.stack([block_l2_norms(w, block) for w in w3])
-    return norms.reshape(tuple(leaf.shape[:-2]) + tuple(norms.shape[1:]))
-
-
 class BlockNormState(NamedTuple):
     """Once-per-round ranking statistics for one prunable leaf."""
 
@@ -139,8 +129,8 @@ class BlockNormState(NamedTuple):
     cum_frac: torch.Tensor      # (T,) cumulative element mass of sorted tiles
 
 
-def _leaf_state(leaf: torch.Tensor, block) -> BlockNormState:
-    norms = _leaf_tile_norms(leaf, block)
+def _leaf_state(leaf: torch.Tensor, block, norms: torch.Tensor
+                ) -> BlockNormState:
     counts = _tile_element_counts(leaf.shape[-2], leaf.shape[-1], block,
                                   leaf.device).expand(norms.shape)
     counts = counts.reshape(-1).to(torch.float32)
@@ -156,10 +146,18 @@ def block_norm_state(params: PyTree, block=DEFAULT_BLOCK
     """Per-leaf ranking state in ``flatten(params)`` order (``None`` for
     1-D leaves, which are never pruned).  ``block`` is an int, a
     ``(bk, bn)`` pair or a per-leaf list (``leaf_blocks``).  A leaf with
-    leading dims ranks all its tiles together, as the reference does."""
+    leading dims ranks all its tiles together, as the reference does.
+    Every prunable leaf's tile norms come from one ``tile_norms_group``
+    call (one launch on the card)."""
     leaves, flags = _flatten_prunable(params)
-    return [_leaf_state(leaf, blk) if f else None
-            for leaf, f, blk in zip(leaves, flags, leaf_blocks(flags, block))]
+    blocks = leaf_blocks(flags, block)
+    ranked = [i for i, f in enumerate(flags) if f]
+    norms = _bn.tile_norms_group([leaves[i] for i in ranked],
+                                 [blocks[i] for i in ranked])
+    out: list[Optional[BlockNormState]] = [None] * len(leaves)
+    for i, n in zip(ranked, norms):
+        out[i] = _leaf_state(leaves[i], blocks[i], n)
+    return out
 
 
 def block_thresholds(state: BlockNormState, rate: torch.Tensor

@@ -70,9 +70,9 @@ def grads_tree(layer_grads: Sequence[tuple[torch.Tensor, torch.Tensor]]
 def layer_norm_states(params: dict, block: int
                       ) -> list[pruning.BlockNormState]:
     """One ``BlockNormState`` per weight matrix, in layer order; computed
-    once per round."""
+    once per round, every layer's tile norms in one launch."""
     ws, _ = layer_weights(params)
-    return [pruning.block_norm_state({"w": w}, block)[0] for w in ws]
+    return pruning.block_norm_state(ws, block)
 
 
 def layer_keeps(states: Sequence[pruning.BlockNormState],

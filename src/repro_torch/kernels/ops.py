@@ -5,7 +5,8 @@ Each call runs a kernel for tensors on the card and its plain version for
 tensors on the CPU.  The reference's ``block_m`` / ``block_q`` /
 ``block_s`` (TPU tiling) and ``impl`` / ``interpret`` (how to run Pallas)
 have no counterpart: the CUDA kernels pick their own tiles.  ``block_k``
-and ``block_n`` of ``masked_matmul`` stay: they are the mask granularity.
+and ``block_n`` of ``masked_matmul`` and ``tile_norms`` stay: they are the
+mask granularity and the tile.
 """
 
 from __future__ import annotations
@@ -15,11 +16,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import block_norms as _bn
 from repro_torch.kernels import block_sparse_matmul as _bsm
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_prefill as _fp
 
-__all__ = ["masked_matmul", "flash_decode", "flash_prefill"]
+__all__ = ["masked_matmul", "tile_norms", "flash_decode", "flash_prefill"]
 
 
 def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
@@ -34,6 +36,17 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
         else _bsm.block_sparse_matmul
     y = fn(x2, w, mask, block_k, block_n)
     return y.reshape(*lead, y.shape[-1])
+
+
+def tile_norms(w: torch.Tensor, block_k: int = 128, block_n: int = 128
+               ) -> torch.Tensor:
+    """Per-tile squared L2 norms of w (K, N) zero-padded to the tile ->
+    (ceil(K/bk), ceil(N/bn)) float32.  The kernel's ragged edge tiles sum
+    their real elements, which is what the padding gives, so no padded
+    copy is made; the reference's ``interpret`` has no counterpart."""
+    if w.ndim != 2:
+        raise ValueError(f"tile_norms takes (K, N), got {tuple(w.shape)}")
+    return _bn.tile_norms(w, block_k, block_n)
 
 
 def _head_mask(head_mask, device) -> Optional[torch.Tensor]:
