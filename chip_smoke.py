@@ -34,8 +34,11 @@ Phases (any failure exits non-zero and prints no result line):
                metrics and wall time, launch counts (each > 0, the tile
                norms one a round), and a second run that must give
                bitwise-identical losses;
-  5. card vs CPU — a small fleet from the same numpy draws on the CPU (plain
-               versions) and on the card (kernels), compared at 1e-4;
+  5. card vs CPU — a small fleet from the same numpy draws (Gumbel scores
+               included) on the CPU (plain versions) and on the card
+               (kernels), compared at 1e-4: the sync fused round, the
+               cohort path, async events and the reference kernel with
+               magnitude and with block masks;
   6. serve   — smollm-135m at full width (random weights from a seed,
                bfloat16, pruned at rho = 0.5 on its tile grid) through
                ServeEngine: 64 requests x (32 prompt + 32 new tokens) on 32
@@ -44,8 +47,23 @@ Phases (any failure exits non-zero and prints no result line):
                and a profiled decode step; tokens must be
                equal across 32 and 8 slots, to a per-request host loop and
                (up to near-ties) between the two modes, and a 2-layer
-               full-width copy must give the same logits on card and CPU.
-The line before the last is the kernels JSON; the last is the device JSON.
+               full-width copy must give the same logits on card and CPU;
+  7. cohort  — fleet_bench's cohort arm at the slice: 10 of 100 clients a
+               cell, uniform, the cohort gather, control_chunk=25, 5
+               rounds: one fused call over the 1,000-client cohort and one
+               ranking a round, a profiled round beside phase 4's;
+  8. async   — FedBuff events: buffer 2,500 (0.25 n), max_staleness 20,
+               polynomial discount, 10 events: fused and tile-norm
+               launches equal to the populated ring slots (found from the
+               in-flight state apart from the engine), sim_time never
+               decreasing, participants <= 2,500, a profiled event;
+  9. reference — kernel="reference" with magnitude masks in 1,000-client
+               chunks, 2 rounds, beside phase 4's fused rounds; then
+               reference(block) against fused on 2 x 8 clients at 1e-4.
+Phases 7-9 print each round or event's wall (control, apply), loss,
+participants and launches, and rerun bitwise.  The line before the last
+is the kernels JSON (the fleet rows also carry the launches of phases
+7-9); the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -763,7 +781,7 @@ def slice_config(rounds=SLICE_ROUNDS, cells=SLICE_CELLS, per_cell=SLICE_PER_CELL
                        kernel="fused", rounds=rounds)
 
 
-def run_main_path(card: str) -> tuple[list, dict]:
+def run_main_path(card: str) -> tuple[list, dict, dict]:
     import torch
     from repro_torch.fleet import build_simulation
     from repro_torch.kernels import block_norms as BN
@@ -778,7 +796,7 @@ def run_main_path(card: str) -> tuple[list, dict]:
     FF.fused_fleet_grads.launches = 0
     BN.tile_norms.launches = 0
     carry = sim.init_carry(sim.params)
-    history = []
+    history, walls = [], []
     for r in range(cfg.rounds):
         t0 = time.perf_counter()
         ctl = sim.control(r)
@@ -788,6 +806,7 @@ def run_main_path(card: str) -> tuple[list, dict]:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         history.append(m)
+        walls.append((t2 - t0) * 1e3)
         log(f"  round {r}: loss={float(m['loss']):.6f} "
             f"acc={float(m['accuracy']):.4f} "
             f"latency={float(m['round_latency']):.4f} s "
@@ -814,7 +833,7 @@ def run_main_path(card: str) -> tuple[list, dict]:
     log(f"  bound_final={result.bound_final:.6f} "
         f"final accuracy={result.accuracy[-1]:.4f}")
 
-    profile_round(sim, carry, cfg.rounds - 1, card)
+    busy_ms = profile_round(sim, carry, cfg.rounds - 1, card)
 
     again = build_simulation(cfg)
     _, m2 = again.simulate(again.params)
@@ -822,18 +841,20 @@ def run_main_path(card: str) -> tuple[list, dict]:
     if losses2 != losses:
         raise AssertionError(f"rerun losses differ: {losses} vs {losses2}")
     log("  rerun: losses bitwise identical")
-    return losses, counts
+    return losses, counts, dict(busy_ms=busy_ms, warm_ms=sorted(walls[1:]))
 
 
-def profile_round(sim, carry, r: int, card: str) -> None:
-    """One more (warm) round under torch.profiler."""
-    profile_device(lambda: sim.step(carry, r), "round", card)
+def profile_round(sim, carry, r: int, card: str, what: str = "round"):
+    """One more (warm) round or event under torch.profiler; its device
+    busy ms, or None where not measured."""
+    return profile_device(lambda: sim.step(carry, r), what, card)
 
 
-def profile_device(fn, what: str, card: str) -> None:
+def profile_device(fn, what: str, card: str):
     """``fn`` once under torch.profiler: device busy share of its wall time
-    and the device time by kernel.  A measurement only: if the profiler
-    records no device time it says "not measured"."""
+    and the device time by kernel; returns the busy ms.  A measurement
+    only: if the profiler records no device time it says "not measured"
+    and returns None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -848,13 +869,14 @@ def profile_device(fn, what: str, card: str) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log(f"  profiled {what}: device time not measured (no CUDA events)")
-        return
+        return None
     log(f"  profiled {what}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e.count for e in kernels)} device ops [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    return busy_us / 1e3
 
 
 def numpy_fleet(cells: int, per_cell: int, rounds: int, seed: int = 7):
@@ -870,9 +892,13 @@ def numpy_fleet(cells: int, per_cell: int, rounds: int, seed: int = 7):
                num_samples=rng.integers(16, 65, shape).astype(np.float64),
                tx_power=np.full(shape, 10 ** 2.3 * 1e-3),
                max_prune=np.full(shape, 0.7))
+    # the schedule's Gumbel scores from a generator of their own, so the
+    # other draws are those of a fleet without them
+    gumbel = np.random.default_rng(seed + 1000)
     draws = [(pathloss * rng.exponential(size=shape),
               pathloss * rng.exponential(size=shape),
-              rng.uniform(size=shape), rng.uniform(size=shape))
+              rng.uniform(size=shape), rng.uniform(size=shape),
+              gumbel.gumbel(size=shape))
              for _ in range(rounds)]
     sizes = (DNN["feature_dim"],) + DNN["hidden"] + (DNN["num_classes"],)
     params = {f"layer{i}": {"w": rng.normal(size=(a, b)) * np.sqrt(2.0 / a),
@@ -889,32 +915,285 @@ def numpy_fleet(cells: int, per_cell: int, rounds: int, seed: int = 7):
     return pop, draws, params, state, batches
 
 
-def card_vs_cpu(card: str) -> None:
+def card_vs_cpu(card: str, what: str = "sync, fused", mode: str = "sync",
+                **change) -> None:
+    """A small fleet (4 x 8 clients, 3 rounds or events) from the same
+    numpy draws on the CPU (plain versions) and on the card (kernels):
+    losses, params and (async) the time axis and staleness within TOL."""
+    import dataclasses
     import numpy as np
     from repro_torch import weights
     from repro_torch.fleet import InjectedDraws, run_fleet
 
     cells, per_cell, rounds = 4, 8, 3
-    pop, draws, params, state, batches = numpy_fleet(cells, per_cell, rounds)
-    cfg = slice_config(rounds=rounds, cells=cells, per_cell=per_cell)
+    pop, draws, params, state, batches = numpy_fleet(
+        cells, per_cell, rounds + (mode == "async"))
+    cfg = dataclasses.replace(
+        slice_config(rounds=rounds, cells=cells, per_cell=per_cell), **change)
     results = {}
     for dev in ("cpu", "cuda"):
         src = InjectedDraws(weights.population_from_numpy(pop, device=dev),
                             [weights.round_draws_from_numpy(*d, device=dev)
                              for d in draws])
         start = weights.start_from_numpy(params, state, batches, device=dev)
-        results[dev] = run_fleet(cfg, device=dev, draws=src, start=start)
+        results[dev] = run_fleet(cfg, mode, device=dev, draws=src,
+                                 start=start)
     a, b = results["cuda"], results["cpu"]
     loss_rel = float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses)))
     par_rel = max(float(np.max(np.abs(a.params[k][n] - b.params[k][n]))
                         / max(float(np.max(np.abs(b.params[k][n]))), 1e-30))
                   for k in b.params for n in ("w", "b"))
-    log(f"  {cells}x{per_cell} clients, {rounds} rounds: losses card "
+    time_rel = float(np.max(np.abs(a.wall_clock - b.wall_clock)
+                            / np.abs(b.wall_clock)))
+    # a mean staleness is a mean of equal integers: rounding apart
+    stale_err = float(np.max(np.abs(a.staleness - b.staleness)))
+    log(f"  [{what}] {cells}x{per_cell} clients, {rounds} "
+        f"{'events' if mode == 'async' else 'rounds'}: losses card "
         f"{a.losses.tolist()} cpu {b.losses.tolist()}")
-    log(f"  loss rel err {loss_rel:.3e}, params rel err {par_rel:.3e} "
-        f"(tol {TOL}) [{card}]")
+    log(f"  [{what}] loss rel err {loss_rel:.3e}, params rel err "
+        f"{par_rel:.3e}, wall_clock rel err {time_rel:.3e}, staleness err "
+        f"{stale_err:.1e}; participants "
+        f"{a.participants.tolist()} (tol {TOL}) [{card}]")
+    if loss_rel > TOL or par_rel > TOL or time_rel > TOL or stale_err > TOL:
+        raise AssertionError(f"card and CPU runs disagree ({what})")
+    if not np.array_equal(a.participants, b.participants):
+        raise AssertionError(f"card and CPU participants differ ({what})")
+
+
+def card_vs_cpu_paths(card: str) -> None:
+    """Phase 5: the sync fused round, then each path phases 7-9 drive."""
+    from repro_torch.fleet import AsyncConfig, ScheduleConfig
+    card_vs_cpu(card)
+    card_vs_cpu(card, "cohort: uniform m=3, control_chunk=3",
+                schedule=ScheduleConfig(participation="uniform",
+                                        participants_per_cell=3),
+                control_chunk=3)
+    card_vs_cpu(card, "async: fused, buffer 12", mode="async",
+                async_config=AsyncConfig(buffer_size=12, max_staleness=4))
+    card_vs_cpu(card, "reference: magnitude masks", kernel="reference")
+    card_vs_cpu(card, "reference: block masks", kernel="reference",
+                mask_kind="block")
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-9: partial participation, async events, the reference kernel
+# ---------------------------------------------------------------------------
+
+COHORT_M, COHORT_CHUNK = 10, 25
+ASYNC_BUFFER, ASYNC_STALENESS, ASYNC_EVENTS = 2500, 20, 10
+REF_ROUNDS, REF_CELL_CHUNK = 2, 10
+
+
+def fleet_counts() -> dict:
+    from repro_torch.kernels import block_norms as BN
+    from repro_torch.kernels import fleet_fused as FF
+    return {"fleet_fused_grads": FF.fused_fleet_grads.launches,
+            "tile_norms": BN.tile_norms.launches}
+
+
+def zero_fleet_counts() -> None:
+    from repro_torch.kernels import block_norms as BN
+    from repro_torch.kernels import fleet_fused as FF
+    FF.fused_fleet_grads.launches = 0
+    BN.tile_norms.launches = 0
+
+
+def populated_slots(sim, carry) -> int:
+    """The ring slots the next event's buffer downloaded from, found from
+    the in-flight state apart from the engine (the gate's count)."""
+    import torch
+    from repro_torch.fleet import scheduler as SCHED
+    hist, head, version, _, st = carry
+    acfg = sim.cfg.async_config
+    sel, _ = SCHED.select_arrivals(
+        st.ready, acfg.cohort_buffer(sim.cfg.topology.num_clients))
+    tau = version - st.start_ver.reshape(-1)[sel]
+    h = acfg.history_len
+    return int(torch.unique((head - tau.clamp(0, h - 1)) % h).numel())
+
+
+def drive(sim, what: str, card: str, slots: bool = False):
+    """Every round or event of ``sim`` from its start, timed as control and
+    apply, with the launch counts (zeroed first) each one added; returns
+    (carry, metrics, walls in ms, launches a step, and a step's populated
+    slots where ``slots`` is set, else its last fused call's clients)."""
+    import torch
+    from repro_torch.kernels import fleet_fused as FF
+    zero_fleet_counts()
+    FF.fused_fleet_grads.last_clients = 0
+    carry = sim.init_carry(sim.params)
+    torch.cuda.synchronize()
+    history, walls, steps, filled = [], [], [], []
+    for r in range(sim.cfg.rounds):
+        n_slots = populated_slots(sim, carry) if slots else None
+        before = fleet_counts()
+        t0 = time.perf_counter()
+        ctl = sim.control(r)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        carry, m = sim.apply(carry, ctl)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after = fleet_counts()
+        step = {k: after[k] - before[k] for k in after}
+        history.append(m)
+        walls.append((t2 - t0) * 1e3)
+        steps.append(step)
+        filled.append(n_slots if slots else FF.fused_fleet_grads.last_clients)
+        extra = ""
+        if slots:
+            extra = (f"staleness={float(m['staleness']):.3f} "
+                     f"sim_time={float(m['sim_time']):.4f} s "
+                     f"slots={n_slots} ")
+        log(f"  {what} {r}: loss={float(m['loss']):.6f} "
+            f"participants={int(m['participants'])} "
+            f"latency={float(m['round_latency']):.4f} s {extra}"
+            f"wall={(t2 - t0) * 1e3:.2f} ms (control {(t1 - t0) * 1e3:.2f}, "
+            f"apply {(t2 - t1) * 1e3:.2f}) launches {json.dumps(step)} "
+            f"[{card}]")
+    metrics = {k: torch.stack([h[k] for h in history]) for k in history[0]}
+    losses = metrics["loss"].cpu().tolist()
+    if not all(abs(v) < float("inf") for v in losses):
+        raise AssertionError(f"{what}: non-finite losses {losses}")
+    return carry, metrics, walls, steps, filled
+
+
+def rerun_bitwise(cfg, mode: str, losses: list, what: str) -> None:
+    from repro_torch.fleet import build_simulation
+    again = build_simulation(cfg, mode)
+    _, m2 = again.simulate(again.params)
+    losses2 = m2["loss"].cpu().tolist()
+    if losses2 != losses:
+        raise AssertionError(f"{what} rerun losses differ: {losses} vs "
+                             f"{losses2}")
+    log(f"  {what} rerun: losses bitwise identical")
+
+
+def run_cohort(card: str, main: dict) -> dict:
+    """Phase 7: fleet_bench's cohort arm at full width: 10 of 100 clients
+    a cell, uniform, the cohort gather (auto), control_chunk=25."""
+    import dataclasses
+    from repro_torch.fleet import ScheduleConfig, build_simulation
+    cfg = dataclasses.replace(
+        slice_config(), control_chunk=COHORT_CHUNK,
+        schedule=ScheduleConfig(participation="uniform",
+                                participants_per_cell=COHORT_M))
+    sim = build_simulation(cfg)
+    ctl = sim.control(0)
+    if ctl.cohort is None or tuple(ctl.cohort.shape) != (SLICE_CELLS,
+                                                         COHORT_M):
+        raise AssertionError("the cohort path is off")
+    carry, metrics, walls, steps, clients = drive(sim, "cohort round", card)
+    counts = fleet_counts()
+    log("  kernels " + json.dumps(counts))
+    for step in steps:
+        if step != {"fleet_fused_grads": 1, "tile_norms": 1}:
+            raise AssertionError(f"a cohort round launched {step}, not one "
+                                 "fused call and one ranking")
+    if set(clients) != {SLICE_CELLS * COHORT_M}:
+        raise AssertionError(f"the fused calls took {clients} clients, not "
+                             f"the {SLICE_CELLS * COHORT_M}-client cohort")
+    log(f"  the fused call of each round took the {clients[0]}-client "
+        f"cohort {tuple(ctl.cohort.shape)}")
+    busy = profile_round(sim, carry, cfg.rounds - 1, card, "cohort round")
+    log(f"  cohort round busy {fmt_ms(busy)} against phase 4's full round "
+        f"{fmt_ms(main['busy_ms'])}; warm walls {fmt_walls(walls[1:])} "
+        f"against {fmt_walls(main['warm_ms'])} [{card}]")
+    rerun_bitwise(cfg, "sync", metrics["loss"].cpu().tolist(), "cohort")
+    return counts
+
+
+def run_async(card: str) -> dict:
+    """Phase 8: fleet_bench --compare's async arm at full width: a buffer
+    of 0.25 n = 2,500, max_staleness 20, polynomial discount, 10 events."""
+    import dataclasses
+    from repro_torch.fleet import AsyncConfig, build_simulation
+    cfg = dataclasses.replace(
+        slice_config(rounds=ASYNC_EVENTS),
+        async_config=AsyncConfig(buffer_size=ASYNC_BUFFER,
+                                 max_staleness=ASYNC_STALENESS,
+                                 staleness_discount="polynomial"))
+    sim = build_simulation(cfg, "async")
+    carry, metrics, walls, steps, filled = drive(sim, "async event", card,
+                                                 slots=True)
+    counts = fleet_counts()
+    log("  kernels " + json.dumps(counts) + f", populated slots summed "
+        f"over events {sum(filled)}")
+    if not (counts["fleet_fused_grads"] == counts["tile_norms"]
+            == sum(filled) > 0):
+        raise AssertionError(f"async launches {counts} against "
+                             f"{sum(filled)} populated slots")
+    for step, n in zip(steps, filled):
+        if step != {"fleet_fused_grads": n, "tile_norms": n}:
+            raise AssertionError(f"an event launched {step} over {n} slots")
+    sim_time = metrics["sim_time"].cpu().tolist()
+    if any(b < a for a, b in zip(sim_time, sim_time[1:])):
+        raise AssertionError(f"sim_time decreased: {sim_time}")
+    if float(metrics["participants"].max()) > ASYNC_BUFFER:
+        raise AssertionError("more participants than the buffer")
+    busy = profile_round(sim, carry, cfg.rounds, card, "async event")
+    log(f"  async event busy {fmt_ms(busy)}; warm walls "
+        f"{fmt_walls(walls[1:])} [{card}]")
+    rerun_bitwise(cfg, "async", metrics["loss"].cpu().tolist(), "async")
+    return counts
+
+
+def run_reference(card: str, main: dict) -> tuple[dict, dict]:
+    """Phase 9: the reference kernel (vmap autodiff, magnitude masks) at
+    full width in 1,000-client chunks, then reference(block) against
+    fused on a 2 x 8 fleet from the same draws."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import weights
+    from repro_torch.fleet import InjectedDraws, build_simulation, run_fleet
+    cfg = dataclasses.replace(slice_config(rounds=REF_ROUNDS),
+                              kernel="reference", mask_kind="magnitude",
+                              cell_chunk=REF_CELL_CHUNK)
+    sim = build_simulation(cfg)
+    _, metrics, walls, _, _ = drive(sim, "reference round", card)
+    counts = fleet_counts()
+    log(f"  kernels {json.dumps(counts)} (magnitude masks have no kernel); "
+        f"rounds {fmt_walls(walls)} against phase 4's fused warm rounds "
+        f"{fmt_walls(main['warm_ms'])} [{card}]")
+    rerun_bitwise(cfg, "sync", metrics["loss"].cpu().tolist(), "reference")
+
+    pop, draws, params, state, batches = numpy_fleet(2, 8, 1)
+    out = {}
+    zero_fleet_counts()
+    for kernel in ("reference", "fused"):
+        small = dataclasses.replace(
+            slice_config(rounds=1, cells=2, per_cell=8), kernel=kernel,
+            mask_kind="block")
+        src = InjectedDraws(weights.population_from_numpy(pop, device="cuda"),
+                            [weights.round_draws_from_numpy(*d, device="cuda")
+                             for d in draws])
+        start = weights.start_from_numpy(params, state, batches,
+                                         device="cuda")
+        out[kernel] = run_fleet(small, device="cuda", draws=src, start=start)
+        if kernel == "reference":
+            block_counts = fleet_counts()
+    a, b = out["reference"], out["fused"]
+    loss_rel = float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses)))
+    par_rel = max(float(np.max(np.abs(a.params[k][n] - b.params[k][n]))
+                        / max(float(np.max(np.abs(b.params[k][n]))), 1e-30))
+                  for k in b.params for n in ("w", "b"))
+    log(f"  reference(block) against fused, 2x8 clients, one round: loss "
+        f"rel err {loss_rel:.3e}, params rel err {par_rel:.3e} (tol {TOL}); "
+        f"reference(block) launches {json.dumps(block_counts)} [{card}]")
     if loss_rel > TOL or par_rel > TOL:
-        raise AssertionError("card and CPU runs disagree")
+        raise AssertionError("reference(block) and fused disagree")
+    if block_counts != {"fleet_fused_grads": 0, "tile_norms": 1}:
+        raise AssertionError(f"reference(block) launched {block_counts}, "
+                             "not one ranking")
+    return counts, block_counts
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def fmt_walls(walls) -> str:
+    return "[" + ", ".join(f"{w:.2f}" for w in walls) + "] ms"
 
 
 # ---------------------------------------------------------------------------
@@ -1209,18 +1488,31 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[4] main path")
-    _, counts = run_main_path(card)
+    _, counts, main = run_main_path(card)
     for row in rows:
         row["launches"] = counts[row["name"]]
 
-    log("[5] whole path, card against CPU")
-    card_vs_cpu(card)
+    log("[5] whole paths, card against CPU")
+    card_vs_cpu_paths(card)
 
     log("[6] serve smollm-135m")
     serve_counts = run_serve(card)
     for row in serve_rows:
         row["launches"] = serve_counts[row["name"]]
     rows[1]["bundle_launches"] = serve_counts["tile_norms"]
+    torch.cuda.empty_cache()
+
+    log("[7] partial participation: the cohort path")
+    cohort = run_cohort(card, main)
+    log("[8] async events")
+    asynced = run_async(card)
+    log("[9] the reference kernel")
+    reference, reference_block = run_reference(card, main)
+    for row in rows:
+        row["cohort_launches"] = cohort[row["name"]]
+        row["async_launches"] = asynced[row["name"]]
+        row["reference_launches"] = reference[row["name"]]
+        row["reference_block_launches"] = reference_block[row["name"]]
     rows += serve_rows
 
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,101 @@
+"""Packet-error-aware aggregation (the paper's Eq. (5)) and the FedBuff merge.
+
+The port of the torch half of ``repro.core.aggregation``.  Synchronous
+rule:
+
+  g = sum_i K_i C_i grad_i / sum_i K_i C_i,   C_i ~ Bernoulli(1 - q_i);
+
+buffered (FedBuff) rule of the fleet engine's async mode: each update
+also carries its staleness tau_i, in server versions, and merges with
+
+  w_i = K_i C_i s(tau_i) 1{tau_i <= tau_max},
+
+``s`` the discount of ``staleness_scale``.  With tau = 0 everywhere the
+buffered rule is Eq. (5).  Stacked per-client gradients are params-shaped
+trees whose leaves lead with the client axis.
+
+Random draws take their uniforms from the caller (``sample_arrivals``),
+as the scheduler's do.  ``psum_aggregate``, the reference's collective
+form, comes with ``torch.distributed`` (ROADMAP.md Queue A, item 10); the
+numpy half of the reference module comes with the host reference path
+(item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core.pruning import tree_map
+
+__all__ = ["sample_arrivals", "aggregate", "staleness_scale",
+           "buffered_weights", "buffered_aggregate"]
+
+PyTree = Any
+
+
+def sample_arrivals(u: torch.Tensor, per: torch.Tensor) -> torch.Tensor:
+    """Packet indicators C_i ~ Bernoulli(1 - q_i) from uniforms ``u``
+    (float32, as the reference's)."""
+    return (u >= per).to(torch.float32)
+
+
+def _weighted_mean(client_grads: PyTree, w: torch.Tensor) -> PyTree:
+    """sum_i w_i g_i / sum_i w_i per leaf; zeros where every weight is 0
+    (the server skips the update)."""
+    denom = torch.sum(w)
+    safe = torch.where(denom > 0.0, denom, 1.0)
+
+    def reduce(leaf):
+        num = torch.sum(leaf * w.reshape((-1,) + (1,) * (leaf.ndim - 1)),
+                        dim=0)
+        return torch.where(denom > 0.0, num / safe, torch.zeros_like(num))
+
+    return tree_map(reduce, client_grads)
+
+
+def aggregate(client_grads: PyTree, num_samples: torch.Tensor,
+              arrivals: torch.Tensor) -> PyTree:
+    """Eq. (5) on stacked gradients (K_i taken in float32, as the
+    reference does)."""
+    return _weighted_mean(client_grads,
+                          num_samples.to(torch.float32) * arrivals)
+
+
+def staleness_scale(staleness, kind: str = "polynomial", alpha: float = 0.5,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """FedBuff discount s(tau) of an update ``staleness`` versions old, in
+    ``dtype``: ``"none"`` (1), ``"polynomial"`` ((1 + tau)^-alpha) or
+    ``"exponential"`` (exp(-alpha tau)); s(0) = 1 for each."""
+    tau = torch.clamp_min(torch.as_tensor(staleness).to(dtype), 0.0)
+    if kind == "none":
+        return torch.ones_like(tau)
+    if kind == "polynomial":
+        return (1.0 + tau) ** (-alpha)
+    if kind == "exponential":
+        return torch.exp(-alpha * tau)
+    raise ValueError(f"unknown staleness discount {kind!r}")
+
+
+def buffered_weights(num_samples, arrivals, staleness, *,
+                     kind: str = "polynomial", alpha: float = 0.5,
+                     max_staleness: int = 20,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Merge weights w_i = K_i C_i s(tau_i) 1{tau_i <= tau_max}, in
+    ``dtype``; an update older than ``max_staleness`` weighs 0."""
+    k = torch.as_tensor(num_samples).to(dtype)
+    s = staleness_scale(staleness, kind=kind, alpha=alpha, dtype=dtype)
+    fresh = (torch.as_tensor(staleness) <= max_staleness).to(dtype)
+    return k * torch.as_tensor(arrivals) * s * fresh
+
+
+def buffered_aggregate(client_grads: PyTree, num_samples, arrivals,
+                       staleness, *, kind: str = "polynomial",
+                       alpha: float = 0.5, max_staleness: int = 20,
+                       dtype: torch.dtype = torch.float32) -> PyTree:
+    """The FedBuff merge on stacked gradients; at zero staleness it is
+    ``aggregate``.  A buffer of zero total weight gives zero gradients."""
+    return _weighted_mean(client_grads, buffered_weights(
+        num_samples, arrivals, staleness, kind=kind, alpha=alpha,
+        max_staleness=max_staleness, dtype=dtype))

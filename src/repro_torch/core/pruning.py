@@ -1,11 +1,26 @@
-"""Block-structured pruning: the ranking statistic and per-client keeps.
+"""Pruning masks: unstructured magnitude masks and block-structured tile masks.
 
-The port of ``repro.core.pruning``'s block ranking and keep masks.
-Every >= 2-D weight matrix is cut into (bk, bn) tiles; a round ranks the
-tiles once by squared L2 norm (``block_norm_state``) and every client's
-tile-keep indicators are then one ``searchsorted`` against the shared
-cumulative element mass (``block_keep``).  The threshold is an element-count-weighted
-quantile, so ragged edge tiles count only their real elements.
+The port of ``repro.core.pruning``.  Only >= 2-D leaves are prunable;
+masks are ``torch.bool`` trees shaped like the params.
+
+* ``magnitude_masks`` — global unstructured magnitude pruning: keep
+  ``|w| > q``, q the rho-quantile of every prunable magnitude, with the
+  linear interpolation of ``jnp.quantile`` (sort, ``pos = q (n - 1)``,
+  floor and ceiling, weighted sum), in that order.  ``torch.quantile``
+  takes one q for every row and refuses inputs above 2^24 elements, so it
+  is not used.
+* ``block_masks`` — every >= 2-D weight matrix is cut into (bk, bn)
+  tiles; a round ranks the tiles once by squared L2 norm
+  (``block_norm_state``) and every client's tile-keep indicators are then
+  one ``searchsorted`` against the shared cumulative element mass
+  (``block_keep``, ``masks_from_state``).  The threshold is an
+  element-count-weighted quantile, so ragged edge tiles count only their
+  real elements.
+
+Every mask builder takes a rate of any shape R (a batch of clients) and
+returns masks shaped R + leaf shape, one per rate: the sort runs once for
+the whole batch, which is what the reference's ``vmap`` over clients
+sharing one model amounts to.
 
 Leaves with leading dims (a transformer stage's stacked layers) rank
 tiles over the last two dims, batch-wise, exactly as the reference does.
@@ -29,6 +44,14 @@ from repro_torch.kernels import block_norms as _bn
 from repro_torch.kernels import block_sparse_matmul as _bsm
 
 __all__ = [
+    "prunable",
+    "ones_masks",
+    "sorted_magnitudes",
+    "magnitude_masks",
+    "block_masks",
+    "masks_from_state",
+    "achieved_rate",
+    "tree_map",
     "BlockNormState",
     "block_l2_norms",
     "block_norm_state",
@@ -54,8 +77,9 @@ def _block_pair(block) -> tuple[int, int]:
 
 def flatten(tree: PyTree) -> list:
     """Leaves in ``jax.tree_util.tree_flatten`` order: dict keys sorted (so
-    ``layer10`` precedes ``layer2``), lists and tuples by index, ``None``
-    an empty subtree.  Per-leaf state lists align with this order."""
+    ``layer10`` precedes ``layer2``), lists and tuples (named ones too) by
+    index, ``None`` an empty subtree.  Per-leaf state lists align with
+    this order."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in flatten(tree[key])]
     if isinstance(tree, (list, tuple)):
@@ -75,7 +99,10 @@ def unflatten(tree: PyTree, leaves: list) -> PyTree:
             out = {key: build(node[key]) for key in sorted(node)}
             return {key: out[key] for key in node}
         if isinstance(node, (list, tuple)):
-            return type(node)(build(sub) for sub in node)
+            subs = [build(sub) for sub in node]
+            # a named tuple takes its fields as arguments
+            return type(node)(*subs) if hasattr(node, "_fields") \
+                else type(node)(subs)
         if node is None:
             return None
         return next(it)
@@ -86,9 +113,82 @@ def unflatten(tree: PyTree, leaves: list) -> PyTree:
     return out
 
 
+def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of ``tree`` (and of ``rest``, which share its
+    structure), in ``flatten`` order."""
+    return unflatten(tree, [fn(*xs) for xs in
+                            zip(flatten(tree), *(flatten(t) for t in rest))])
+
+
+def prunable(path: tuple, leaf: torch.Tensor) -> bool:
+    """Only >= 2-D weight tensors are prunable; biases stay dense."""
+    del path
+    return leaf.ndim >= 2
+
+
 def _flatten_prunable(params: PyTree) -> tuple[list, list[bool]]:
     leaves = flatten(params)
-    return leaves, [leaf.ndim >= 2 for leaf in leaves]
+    return leaves, [prunable((), leaf) for leaf in leaves]
+
+
+def ones_masks(params: PyTree) -> PyTree:
+    """rho = 0 masks: everything kept."""
+    return tree_map(lambda w: torch.ones(w.shape, dtype=torch.bool,
+                                         device=w.device), params)
+
+
+def _rate(rate, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The pruning rate as a tensor on ``like``'s device, clipped to [0, 1];
+    a Python number takes ``dtype`` (what the reference's weakly typed
+    scalar becomes under x64)."""
+    if not isinstance(rate, torch.Tensor):
+        rate = torch.tensor(rate, dtype=dtype)
+    return torch.clamp(rate.to(like.device), 0.0, 1.0)
+
+
+def _batched(x: torch.Tensor, rate: torch.Tensor, trailing: int
+             ) -> torch.Tensor:
+    """``x`` of ``rate.shape`` widened with ``trailing`` unit dims."""
+    return x.reshape(tuple(rate.shape) + (1,) * trailing)
+
+
+def sorted_magnitudes(params: PyTree) -> torch.Tensor:
+    """Every prunable ``|w|``, concatenated in ``flatten`` order and sorted
+    ascending: the once-per-model half of ``magnitude_masks``.  A NaN
+    anywhere makes every entry NaN, as ``jnp.quantile`` does."""
+    leaves, flags = _flatten_prunable(params)
+    mags = torch.cat([torch.abs(w).reshape(-1)
+                      for w, f in zip(leaves, flags) if f])
+    mags = torch.where(torch.isnan(mags).any(), torch.nan, mags)
+    return torch.sort(mags).values
+
+
+def magnitude_masks(params: PyTree, prune_rate,
+                    mags: Optional[torch.Tensor] = None) -> PyTree:
+    """Global unstructured magnitude pruning at ``prune_rate`` (any shape
+    R): keep ``|w| > q``, q the rate-quantile of every prunable magnitude
+    (``jnp.quantile``'s linear interpolation, computed in the rate's
+    dtype).  At rho = 0 this still drops the smallest magnitude, as the
+    reference does.  ``mags`` is ``sorted_magnitudes(params)`` where the
+    caller already has it."""
+    leaves, flags = _flatten_prunable(params)
+    if mags is None:
+        mags = sorted_magnitudes(params)
+    q = _rate(prune_rate, mags, torch.float64)
+    n = mags.numel()
+    pos = q * (n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1.0 - high_w
+    low = torch.clamp(low, 0, n - 1).long()
+    high = torch.clamp(high, 0, n - 1).long()
+    thresh = (mags[low].to(q.dtype) * low_w
+              + mags[high].to(q.dtype) * high_w).to(mags.dtype)
+    masks = [torch.abs(w) > _batched(thresh, q, w.ndim) if f
+             else torch.ones(tuple(q.shape) + tuple(w.shape),
+                             dtype=torch.bool, device=w.device)
+             for w, f in zip(leaves, flags)]
+    return unflatten(params, masks)
 
 
 def leaf_blocks(flags: list, block) -> list[Optional[tuple[int, int]]]:
@@ -141,6 +241,20 @@ def _leaf_state(leaf: torch.Tensor, block, norms: torch.Tensor
                           cum_frac=cum / cum[-1])
 
 
+def _leaf_norms(params: PyTree, block):
+    """(leaves, flags, blocks, per-leaf tile norms or ``None``): every
+    prunable leaf's norms from one ``tile_norms_group`` call."""
+    leaves, flags = _flatten_prunable(params)
+    blocks = leaf_blocks(flags, block)
+    ranked = [i for i, f in enumerate(flags) if f]
+    got = _bn.tile_norms_group([leaves[i] for i in ranked],
+                               [blocks[i] for i in ranked])
+    norms: list = [None] * len(leaves)
+    for i, n in zip(ranked, got):
+        norms[i] = n
+    return leaves, flags, blocks, norms
+
+
 def block_norm_state(params: PyTree, block=DEFAULT_BLOCK
                      ) -> list[Optional[BlockNormState]]:
     """Per-leaf ranking state in ``flatten(params)`` order (``None`` for
@@ -149,15 +263,9 @@ def block_norm_state(params: PyTree, block=DEFAULT_BLOCK
     leading dims ranks all its tiles together, as the reference does.
     Every prunable leaf's tile norms come from one ``tile_norms_group``
     call (one launch on the card)."""
-    leaves, flags = _flatten_prunable(params)
-    blocks = leaf_blocks(flags, block)
-    ranked = [i for i, f in enumerate(flags) if f]
-    norms = _bn.tile_norms_group([leaves[i] for i in ranked],
-                                 [blocks[i] for i in ranked])
-    out: list[Optional[BlockNormState]] = [None] * len(leaves)
-    for i, n in zip(ranked, norms):
-        out[i] = _leaf_state(leaves[i], blocks[i], n)
-    return out
+    leaves, _, blocks, norms = _leaf_norms(params, block)
+    return [None if n is None else _leaf_state(w, blk, n)
+            for w, blk, n in zip(leaves, blocks, norms)]
 
 
 def block_thresholds(state: BlockNormState, rate: torch.Tensor
@@ -189,15 +297,88 @@ def block_keep(state: list[Optional[BlockNormState]], rates: torch.Tensor
     return out
 
 
+def _tile_masks(leaves, flags, blocks, keeps, lead: tuple = ()) -> list:
+    """Tile keeps -> element masks; unprunable leaves all ones, with the
+    rate batch's ``lead`` dims."""
+    return [_bsm.expand_mask(keep, leaf.shape, *blk) if f
+            else torch.ones(lead + tuple(leaf.shape), dtype=torch.bool,
+                            device=leaf.device)
+            for leaf, f, keep, blk in zip(leaves, flags, keeps, blocks)]
+
+
+def masks_from_state(params: PyTree, state: list[Optional[BlockNormState]],
+                     rate, block=DEFAULT_BLOCK) -> PyTree:
+    """Element-level boolean masks at ``rate`` (any shape R: masks R +
+    leaf shape, every leaf) from a
+    ``block_norm_state`` built with the same ``block``; a rate <= 0 keeps
+    everything."""
+    leaves, flags = _flatten_prunable(params)
+    cum = next(st.cum_frac for st in state if st is not None)
+    rate = _rate(rate, cum, cum.dtype)
+    keeps = []
+    for st in state:
+        if st is None:
+            keeps.append(None)
+            continue
+        nd = st.norms.ndim
+        keeps.append((st.norms >= _batched(block_thresholds(st, rate), rate,
+                                           nd))
+                     | _batched(rate <= 0.0, rate, nd))
+    return unflatten(params, _tile_masks(leaves, flags,
+                                         leaf_blocks(flags, block), keeps,
+                                         tuple(rate.shape)))
+
+
+def block_masks(params: PyTree, prune_rate, block=DEFAULT_BLOCK,
+                scope: str = "leaf") -> PyTree:
+    """Block-structured magnitude masks at ``prune_rate`` (any shape R).
+
+    ``scope="leaf"`` ranks the tiles within each leaf (every matrix loses
+    the same share); ``scope="global"`` ranks every leaf's tiles together.
+    Either way the threshold is an element-count-weighted quantile of the
+    tile norms, and rho = 0 keeps everything."""
+    if scope == "leaf":
+        return masks_from_state(params, block_norm_state(params, block),
+                                prune_rate, block)
+    if scope != "global":
+        raise ValueError(f"scope must be 'leaf' or 'global', got {scope!r}")
+    leaves, flags, blocks, norms = _leaf_norms(params, block)
+    norms_cat = torch.cat([n.reshape(-1) for n in norms if n is not None])
+    counts_cat = torch.cat([
+        _tile_element_counts(w.shape[-2], w.shape[-1], blk, w.device)
+        .expand(n.shape).reshape(-1)
+        for w, blk, n in zip(leaves, blocks, norms) if n is not None]
+    ).to(torch.float32)
+    order = torch.argsort(norms_cat, stable=True)
+    cum = torch.cumsum(counts_cat[order], dim=0)
+    g_state = BlockNormState(norms=norms_cat, sorted_norms=norms_cat[order],
+                             cum_frac=cum / cum[-1])
+    rate = _rate(prune_rate, cum, cum.dtype)
+    g_thresh = block_thresholds(g_state, rate)
+    keeps = [None if n is None else
+             (n >= _batched(g_thresh, rate, n.ndim))
+             | _batched(rate <= 0.0, rate, n.ndim) for n in norms]
+    return unflatten(params, _tile_masks(leaves, flags, blocks, keeps,
+                                         tuple(rate.shape)))
+
+
+def achieved_rate(params: PyTree, masks: PyTree) -> torch.Tensor:
+    """Realized rho = pruned / total elements over the prunable leaves, in
+    float32 (masks with leading rate dims give one rate each)."""
+    leaves, flags = _flatten_prunable(params)
+    kept = sum(m.to(torch.float32).sum(dim=tuple(range(-w.ndim, 0)))
+               for w, m, f in zip(leaves, flatten(masks), flags) if f)
+    total = float(sum(w.numel() for w, f in zip(leaves, flags) if f))
+    return 1.0 - kept / total
+
+
 def masks_from_keep(params: PyTree, keeps: list, block) -> PyTree:
     """Per-leaf tile keeps (``flatten`` order, ``None`` for unprunable
     leaves) -> element-level boolean masks shaped like ``params``."""
     leaves, flags = _flatten_prunable(params)
-    masks = [_bsm.expand_mask(keep > 0, leaf.shape, *blk) if f
-             else torch.ones(leaf.shape, dtype=torch.bool, device=leaf.device)
-             for leaf, f, keep, blk in zip(leaves, flags, keeps,
-                                           leaf_blocks(flags, block))]
-    return unflatten(params, masks)
+    keeps = [None if k is None else k > 0 for k in keeps]
+    return unflatten(params, _tile_masks(leaves, flags,
+                                         leaf_blocks(flags, block), keeps))
 
 
 def apply_masks(params: PyTree, masks: PyTree) -> PyTree:
@@ -208,5 +389,4 @@ def apply_masks(params: PyTree, masks: PyTree) -> PyTree:
             return torch.where(m, w, torch.zeros((), dtype=w.dtype,
                                                  device=w.device))
         return w * m
-    return unflatten(params, [one(w, m) for w, m in
-                              zip(flatten(params), flatten(masks))])
+    return tree_map(one, params, masks)

@@ -1,31 +1,61 @@
-"""Synchronous fleet rounds: channel -> solver -> pruned FedSGD -> Eq. (5).
+"""Fleet rounds and events: channel -> solver -> pruned FedSGD -> aggregation.
 
-The port of ``repro.fleet.engine``'s single-tier synchronous path with the
-fused kernel.  One round realizes the channel, schedules every client,
-runs Algorithm 1 for all cells (``fleet/solver.py``), draws stragglers and
-packet arrivals, ranks every layer's tiles once (``block_norms`` kernel),
-streams the fleet through the fused pruned-gradient kernel, applies the
-Eq.-(5)-weighted SGD step and evaluates.  The reference's round ``scan``
-is a Python loop here (``Simulation.step``); the fleet's cached client
-data and every round tensor stay on the device.
+The port of ``repro.fleet.engine``'s single-tier paths.  Two modes share
+one control pass (``_make_control_fn``: channel, schedule, Algorithm 1
+over every cell (``fleet/solver.py``), realized latencies, straggler and
+packet draws):
+
+* ``mode="sync"`` — the paper's FedSGD barrier.  A round ranks the model's
+  tiles once, trains every scheduled client on its pruned model, applies
+  the Eq.-(5)-weighted SGD step and evaluates.
+* ``mode="async"`` — FedBuff buffered aggregation.  Clients report at
+  their own realized latency (``scheduler.arrival_times``); each server
+  event merges the earliest ``buffer_size`` arrivals, with
+  staleness-discounted weights (``core.aggregation.buffered_weights``),
+  against a ring buffer of the last ``max_staleness + 1`` param versions
+  (one stacked tensor per leaf), then relaunches the merged clients with
+  a fresh control draw.  With ``buffer_size = 0`` and full participation
+  an event is a sync round.
+
+Client gradients (``FleetConfig.kernel``): ``"fused"`` streams the clients
+through the fused kernel (``kernels/fleet_fused.py``, block-tile masks;
+``"fused_xla"`` and ``"fused_pallas"``, which pin TPU execution paths in
+the reference, are aliases of it); ``"reference"`` runs per-client
+autodiff under ``torch.func.vmap`` with magnitude or block masks
+(``mask_kind``), forming the (clients, params) gradient batch, which
+``cell_chunk`` bounds.
+
+Partial participation (uniform or weighted Gumbel top-k) turns on the
+cohort path (``cohort_gather``): the control pass emits each cell's m
+scheduled clients as a (C, m) index batch, the Algorithm-1 solve runs over
+the gathered cohort and scatters back, and the gradient pass gathers
+rates, weights and cached batches along it, so the hot path scales with
+m, not I.  ``control_chunk`` blocks the solve, and the async rebuild of
+the in-flight state, over cells (elementwise over cells, so bitwise equal
+on the CPU).
+
+The reference's round ``scan`` is a Python loop here (``Simulation.step``);
+the fleet's cached client data and every round tensor stay on the device.
+Host syncs: one per solver alternation (the control pass), and in async
+mode one per event (the populated ring slots).
 
 Randomness comes from a draw source: ``GeneratorDraws`` (the default,
 ``torch.Generator``s on the device seeded from ``cfg.seed``) or
-``InjectedDraws`` (arrays supplied by the caller, e.g. the reference's own
-draws in the parity tests).  The model and data side can likewise be
-supplied as a ``SimStart``.
+``InjectedDraws`` (tensors supplied by the caller, e.g. the reference's
+own draws in the parity tests).  A sync run of R rounds reads draws 0 to
+R - 1; an async run of R events reads R + 1 (draw 0 launches the fleet,
+event r relaunches with draw r + 1).  The model and data side can
+likewise be supplied as a ``SimStart``.
 
 Precision: ``dtype`` (default float32) plays the part of the reference's
 global x64 flag.  On the card the kernels take float32 only, and
 ``device.resolve_device`` turns TF32 off for matrix products and cuDNN so
 float32 means float32.
 
-What this slice does not carry raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it: ``kernel="reference"`` (still the default,
-for field parity with the reference), async mode, two-tier
-``cloud_period``, partial participation / cohort gather,
-``control_chunk``, ``HexInterference``, telemetry, Dirichlet data and the
-streaming (uncached) data path.
+What this port does not carry raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it: two-tier ``cloud_period`` (6f),
+``HexInterference`` (6d), telemetry (6g), Dirichlet data and the
+streaming (uncached) data path (6c).
 """
 
 from __future__ import annotations
@@ -37,28 +67,41 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import aggregation as AGG
 from repro_torch.core import closed_form as CF
-from repro_torch.core import wireless
+from repro_torch.core import pruning, wireless
 from repro_torch.core.convergence import ConvergenceBound, SmoothnessParams
 from repro_torch.device import resolve_device
 from repro_torch.fleet import scheduler as SCHED
 from repro_torch.fleet import solver as SOLVER
 from repro_torch.fleet import task as TASK
 from repro_torch.fleet import topology as TOPO
+from repro_torch.kernels import fleet_fused as FUSED
 
 PyTree = Any
 
 __all__ = ["FleetConfig", "FleetResult", "RoundControl", "RoundDraws",
            "GeneratorDraws", "InjectedDraws", "SimStart", "Simulation",
-           "build_simulation", "run_fleet", "resolve_task"]
+           "AsyncState", "build_simulation", "run_fleet", "run",
+           "resolve_task", "time_to_loss"]
 
 _ROADMAP_REST = "see ROADMAP.md Queue A, item 6 (the rest of the engine)"
+KERNELS = ("reference", "fused", "fused_xla", "fused_pallas")
 
 
 @dataclasses.dataclass(frozen=True)
 class FleetConfig:
     """Everything a fleet run needs; the reference's field names and
-    defaults (units follow ``WirelessConfig``; ``weight`` is lambda)."""
+    defaults (units follow ``WirelessConfig``; ``weight`` is lambda;
+    ``rounds`` counts sync rounds or async events).
+
+    ``kernel``: ``"reference"`` (per-client vmap + autodiff, ``mask_kind``
+    magnitude or block masks) or ``"fused"`` (the fused kernel, block
+    masks).  ``"fused_xla"`` and ``"fused_pallas"`` pin the reference's
+    TPU execution paths; here both are aliases of ``"fused"``.
+    ``cohort_gather``: None turns the cohort path on exactly when the
+    schedule is partial; True forces it; False keeps the full fleet.
+    """
 
     topology: TOPO.FleetTopology = dataclasses.field(
         default_factory=TOPO.FleetTopology)
@@ -113,33 +156,32 @@ def resolve_task(cfg: FleetConfig) -> TASK.FleetTask:
 
 
 def _check_supported(cfg: FleetConfig, mode: str) -> None:
-    """Raise for every configuration this slice does not port."""
+    """Raise for invalid configurations (``ValueError``) and for those the
+    port does not carry yet (``NotImplementedError``)."""
     if mode not in ("sync", "async"):
         raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
-    if cfg.kernel not in ("reference", "fused", "fused_xla", "fused_pallas"):
+    if cfg.kernel not in KERNELS:
         raise ValueError(
             "kernel must be 'reference', 'fused', 'fused_xla' or "
             f"'fused_pallas', got {cfg.kernel!r}")
     if cfg.mask_kind not in ("magnitude", "block"):
         raise ValueError(
             f"mask_kind must be 'magnitude' or 'block', got {cfg.mask_kind!r}")
+    if cfg.cloud_period < 0:
+        raise ValueError(f"cloud_period must be >= 0 (0 = single-tier), got "
+                         f"{cfg.cloud_period}")
+    if cfg.control_chunk < 0:
+        raise ValueError(f"control_chunk must be >= 0 (0 = solve all cells "
+                         f"at once), got {cfg.control_chunk}")
     unsupported = []
-    if cfg.kernel != "fused":
-        unsupported.append(f"kernel={cfg.kernel!r} (6a; only 'fused' is "
-                           "ported)")
-    if cfg.cohort_gather or not cfg.schedule.is_full:
-        unsupported.append("partial participation / cohort gather (6b)")
-    if cfg.control_chunk:
-        unsupported.append("control_chunk (6b)")
     if cfg.cache_data is False:
         unsupported.append("cache_data=False, streaming client data (6c)")
     if cfg.geometry is not None and not isinstance(cfg.geometry,
                                                    TOPO.OrthogonalCells):
         unsupported.append(f"geometry {type(cfg.geometry).__name__} (6d)")
-    if mode == "async":
-        unsupported.append("mode='async' (6e)")
     if cfg.cloud_period:
-        unsupported.append("cloud_period, two-tier aggregation (6f)")
+        unsupported.append(f"cloud_period, two-tier aggregation in {mode} "
+                           "mode (6f)")
     if cfg.telemetry is not None:
         unsupported.append("telemetry (6g)")
     if unsupported:
@@ -149,11 +191,12 @@ def _check_supported(cfg: FleetConfig, mode: str) -> None:
 
 @dataclasses.dataclass
 class FleetResult:
-    """Per-round trajectories (host numpy), as in the reference."""
+    """Per-round (sync) or per-event (async) trajectories (host numpy), as
+    in the reference; ``wall_clock`` is the simulated time axis."""
 
     losses: np.ndarray            # (rounds,)
     accuracy: np.ndarray          # (rounds,)
-    latencies: np.ndarray         # (rounds,) realized round latency, s
+    latencies: np.ndarray         # (rounds,) realized round/event latency, s
     deadlines: np.ndarray         # (rounds, C) solver deadlines t~*, s
     mean_prune: np.ndarray        # (rounds,)
     mean_per: np.ndarray          # (rounds,)
@@ -162,14 +205,14 @@ class FleetResult:
     learning_cost: np.ndarray     # (rounds,)
     bound_final: float            # Theorem 1 on realized averages
     params: PyTree                # numpy arrays in the params layout
-    wall_clock: np.ndarray = None
-    staleness: np.ndarray = None
+    wall_clock: np.ndarray = None  # (rounds,) cumulative simulated time, s
+    staleness: np.ndarray = None   # (rounds,) mean merge age, versions
     mode: str = "sync"
     telemetry: Optional[dict] = None
 
 
 class RoundControl(NamedTuple):
-    """One round's system state: schedule, channel, solver, latencies."""
+    """One draw's system state: schedule, channel, solver, latencies."""
 
     mask: torch.Tensor       # (C, I) participation
     strag: torch.Tensor      # (C, I) survived straggler churn
@@ -177,6 +220,9 @@ class RoundControl(NamedTuple):
     sol: SOLVER.CellSolution
     t_client: torch.Tensor   # (C, I) downlink + compute + uplink, s
     m_round: torch.Tensor    # (C,) scheduled-subset Eq.-(11) coefficient
+    # (C, m) scheduled client indices, ascending per cell, on the cohort
+    # path; None on the full-fleet path
+    cohort: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +230,14 @@ class RoundControl(NamedTuple):
 # ---------------------------------------------------------------------------
 
 class RoundDraws(NamedTuple):
-    """One round's random inputs, all (C, I)."""
+    """One draw's random inputs, all (C, I)."""
 
     h_up: torch.Tensor      # uplink power gain (path loss x Rayleigh)
     h_down: torch.Tensor    # downlink power gain
     u_strag: torch.Tensor   # U[0, 1): straggler survival is u < 1 - p
     u_arr: torch.Tensor     # U[0, 1): packet arrives when u >= PER
+    # standard Gumbel scores of a partial schedule (None for a full one)
+    gumbel: Optional[torch.Tensor] = None
 
 
 def _seed(seed: int, stream: str, index: int = 0) -> int:
@@ -199,12 +247,16 @@ def _seed(seed: int, stream: str, index: int = 0) -> int:
 
 class GeneratorDraws:
     """The default draw source: ``torch.Generator``s on ``device``, one per
-    purpose, seeded from ``seed``.  Round r's draws depend only on (seed,
-    r), so a simulation can be run again and repeats exactly."""
+    purpose, seeded from ``seed``.  Draw r depends only on (seed, r), so a
+    simulation can be run again and repeats exactly.  With
+    ``participation`` the draws carry a Gumbel tensor from a stream of its
+    own, ``("participation", r)``, so the other streams, and every
+    full-schedule run, are the same with or without it."""
 
-    def __init__(self, seed: int, device):
+    def __init__(self, seed: int, device, participation: bool = False):
         self.seed = seed
         self.device = torch.device(device)
+        self.participation = participation
 
     def generator(self, stream: str, index: int = 0) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -222,24 +274,30 @@ class GeneratorDraws:
                                 device=self.device)
         return TOPO.make_population(topo, tx_power_w, u_dist, u_cpu, samples)
 
+    def _exponential(self, shape, dtype, g) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, device=self.device
+                           ).exponential_(generator=g)
+
     def round(self, r: int, pop: TOPO.ClientPopulation) -> RoundDraws:
         g = self.generator("round", r)
         shape, dtype = pop.pathloss.shape, pop.pathloss.dtype
         kw = dict(generator=g, dtype=dtype, device=self.device)
-        ray_u = torch.empty(shape, dtype=dtype, device=self.device
-                            ).exponential_(generator=g)
-        ray_d = torch.empty(shape, dtype=dtype, device=self.device
-                            ).exponential_(generator=g)
+        ray_u = self._exponential(shape, dtype, g)
+        ray_d = self._exponential(shape, dtype, g)
         h_up, h_down = TOPO.sample_fading(pop.pathloss, ray_u, ray_d)
+        gumbel = None
+        if self.participation:   # -log(Exp(1)) is standard Gumbel
+            gumbel = -torch.log(self._exponential(
+                shape, dtype, self.generator("participation", r)))
         return RoundDraws(h_up=h_up, h_down=h_down,
                           u_strag=torch.rand(shape, **kw),
-                          u_arr=torch.rand(shape, **kw))
+                          u_arr=torch.rand(shape, **kw), gumbel=gumbel)
 
 
 class InjectedDraws:
     """A draw source of given tensors: the population and one
-    ``RoundDraws`` per round (see ``repro_torch.weights`` for converters
-    from numpy)."""
+    ``RoundDraws`` per draw a run reads (see ``repro_torch.weights`` for
+    converters from numpy)."""
 
     def __init__(self, population: TOPO.ClientPopulation,
                  rounds: Sequence[RoundDraws]):
@@ -255,8 +313,18 @@ class InjectedDraws:
 
     def round(self, r: int, pop) -> RoundDraws:
         if r >= len(self._rounds):
-            raise IndexError(f"no injected draws for round {r}")
+            raise IndexError(f"no injected draws for draw {r} (an async run "
+                             "of R events reads R + 1 draws)")
         return self._rounds[r]
+
+    def check_participation(self) -> None:
+        """Raise unless every draw carries a Gumbel tensor (a partial
+        schedule needs one)."""
+        missing = [r for r, d in enumerate(self._rounds) if d.gumbel is None]
+        if missing:
+            raise ValueError(
+                f"a partial schedule needs RoundDraws.gumbel; injected draws "
+                f"{missing} have none")
 
 
 class SimStart(NamedTuple):
@@ -286,18 +354,14 @@ def _check_on_device(what: str, tree, dev: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The round
+# Client gradients
 # ---------------------------------------------------------------------------
 
 _CACHE_LIMIT_BYTES = 512 << 20
 
 
 def _tree_add(a, b):
-    if isinstance(a, dict):
-        return {k: _tree_add(a[k], b[k]) for k in a}
-    if isinstance(a, tuple):
-        return tuple(_tree_add(x, y) for x, y in zip(a, b))
-    return a + b
+    return pruning.tree_map(lambda x, y: x + y, a, b)
 
 
 def _chunk_accumulate(step, arrays: tuple, chunk: int):
@@ -311,25 +375,66 @@ def _chunk_accumulate(step, arrays: tuple, chunk: int):
     return out
 
 
+def _grads_fn(task: TASK.FleetTask, params: PyTree, cfg: FleetConfig):
+    """The per-model half of the gradient pass, run once for ``params``:
+    the fused path's tile ranking (one ``tile_norms`` launch), or the
+    reference path's sorted magnitudes or tile ranking.  Returns
+    ``grads(rho, batch, weights) -> (weighted grad sum, losses)`` over a
+    flat batch of clients."""
+    if cfg.kernel != "reference":
+        prep = task.kernel_prepare(params)
+        return lambda rho, batch, w: task.kernel_grads(params, prep, batch,
+                                                       rho, w)
+    if cfg.mask_kind == "block":
+        block = task.tile_grid(params)
+        state = pruning.block_norm_state(params, block)
+
+        def masks(rho):
+            return pruning.masks_from_state(params, state, rho, block)
+    else:
+        mags = pruning.sorted_magnitudes(params)
+
+        def masks(rho):
+            return pruning.magnitude_masks(params, rho, mags=mags)
+
+    def grads(rho, batch, w):
+        losses, g = FUSED.masked_client_grads(task.loss, params, masks(rho),
+                                              batch)
+        return FUSED.weighted_sum(w, g), losses
+
+    return grads
+
+
 def _fleet_grads(task: TASK.FleetTask, params: PyTree, rho: torch.Tensor,
                  agg_w: torch.Tensor, sched_w: torch.Tensor,
-                 cfg: FleetConfig, data: PyTree):
-    """Weighted-sum gradients over the fleet through the fused kernel,
-    cell-chunked.  Returns (grad_wsum, sum agg_w, mean scheduled loss)."""
+                 cfg: FleetConfig, data: PyTree,
+                 cohort: Optional[torch.Tensor] = None):
+    """Weighted-sum gradients over the fleet, cell-chunked.  Returns
+    (grad_wsum, sum agg_w, mean scheduled loss).
+
+    ``cohort`` ((C, m) scheduled indices) gathers rates, weights and
+    cached batches before the chunk loop, so the gradient pass runs over
+    C m clients, not C I; unscheduled clients weigh 0, so only the
+    association of the float sums changes."""
     c, i = rho.shape
+    xs, ys = data["x"], data["y"]
+    if cohort is not None:
+        rho, agg_w, sched_w = (torch.take_along_dim(a, cohort, dim=-1)
+                               for a in (rho, agg_w, sched_w))
+        flat = (torch.arange(c, device=cohort.device)[:, None] * i
+                + cohort).reshape(-1)
+        xs, ys = xs[flat], ys[flat]
+        i = cohort.shape[-1]
+    xs = xs.reshape((c, i) + xs.shape[1:])
+    ys = ys.reshape((c, i) + ys.shape[1:])
     chunk = cfg.cell_chunk if 0 < cfg.cell_chunk < c else c
-    xs = data["x"].reshape((c, i) + data["x"].shape[1:])
-    ys = data["y"].reshape((c, i) + data["y"].shape[1:])
-    # once per round: every layer's tile ranking; per-client keeps are one
-    # searchsorted each inside kernel_grads
-    prep = task.kernel_prepare(params)
+    grads = _grads_fn(task, params, cfg)
 
     def step(c_rho, c_w, c_lw, c_x, c_y):
         batch = {"x": c_x.reshape((-1,) + c_x.shape[2:]),
                  "y": c_y.reshape((-1,) + c_y.shape[2:])}
         w_flat = c_w.reshape(-1)
-        g, losses = task.kernel_grads(params, prep, batch, c_rho.reshape(-1),
-                                      w_flat)
+        g, losses = grads(c_rho.reshape(-1), batch, w_flat)
         lw_flat = c_lw.reshape(-1)
         return (g, torch.sum(w_flat), torch.sum(losses * lw_flat),
                 torch.sum(lw_flat))
@@ -339,20 +444,73 @@ def _fleet_grads(task: TASK.FleetTask, params: PyTree, rho: torch.Tensor,
     return g_wsum, w_sum, loss_sum / torch.clamp_min(loss_w, 1.0)
 
 
+# ---------------------------------------------------------------------------
+# The control pass
+# ---------------------------------------------------------------------------
+
+def _cohort_enabled(cfg: FleetConfig) -> bool:
+    """``cfg.cohort_gather``, with None meaning: on exactly when the
+    schedule is partial."""
+    if cfg.cohort_gather is not None:
+        return bool(cfg.cohort_gather)
+    return SCHED.draws_participation(cfg.schedule,
+                                     cfg.topology.clients_per_cell)
+
+
+def _map_cell_blocks(fn, chunk: int, operands):
+    """``fn(operands)`` over consecutive ``chunk``-cell blocks (a ragged
+    remainder is one exact-sized last block), concatenated on the cell
+    axis; ``operands`` is a tree (``pruning.flatten``) of tensors leading
+    with the cell axis.  ``fn`` must be elementwise over cells; then the
+    result equals ``fn(operands)`` and only the working set shrinks."""
+    c = pruning.flatten(operands)[0].shape[0]
+    if not 0 < chunk < c:
+        return fn(operands)
+    parts = [fn(pruning.tree_map(lambda a: a[j:j + chunk], operands))
+             for j in range(0, c, chunk)]
+    return pruning.tree_map(lambda *xs: torch.cat(xs, dim=0), *parts)
+
+
+def _solve_cells_chunked(chunk: int, h_up, num_samples, cpu_hz, tx_power,
+                         max_prune, m_round, mask, cap, **kw
+                         ) -> SOLVER.CellSolution:
+    """``SOLVER.solve_fleet`` over consecutive blocks of ``chunk`` cells
+    (0 or >= C: one solve).  The cells are independent and a frozen cell's
+    lanes stay frozen, so the blocked solution equals the global one."""
+    def solve(ops):
+        return SOLVER.solve_fleet(*ops, **kw)
+
+    return _map_cell_blocks(solve, chunk, (h_up, num_samples, cpu_hz,
+                                           tx_power, max_prune, m_round,
+                                           mask, cap))
+
+
 def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
-    """The round's control pass: channel -> schedule -> Algorithm 1 ->
-    realized latencies -> straggler and packet draws."""
+    """One draw's control pass: channel -> schedule -> Algorithm 1 ->
+    realized latencies -> straggler and packet draws.
+
+    On the cohort path the schedule is also a (C, m) index batch; when the
+    schedule is partial the solve runs over the gathered cohort and
+    scatters back, clients outside it taking the fill the full solve gives
+    non-participants (rho = 0, B = 0, q = 0)."""
     w = cfg.wireless
     n0, b_hz = w.noise_psd_w_per_hz, w.bandwidth_hz
     geo = cfg.geometry if cfg.geometry is not None else TOPO.OrthogonalCells()
     sched = cfg.schedule
     sm = cfg.smoothness
+    use_cohort = _cohort_enabled(cfg)
+    solve_kw = dict(
+        bandwidth_hz=b_hz, noise_psd=n0, waterfall_m0=w.waterfall_m0,
+        model_bits=w.model_bits, cycles_per_sample=w.cycles_per_sample,
+        weight=cfg.weight, solver=cfg.solver)
 
     def control(draws: RoundDraws) -> RoundControl:
         chan = geo.round_channel(draws.h_up, draws.h_down)
         h_up, h_down = chan.h_up, chan.h_down
-        mask = SCHED.participation_mask(sched, tuple(h_up.shape), h_up.dtype,
-                                        h_up.device)
+        mask, cohort = SCHED.participation_cohort(
+            sched, pop.num_samples, draws.gumbel, h_up.dtype)
+        if not use_cohort:
+            cohort = None
         ho = SCHED.handover_mask(chan.served_home, sched)
         if ho is not None:
             mask = mask * ho
@@ -367,12 +525,22 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
             cap = torch.clamp_min(sched.round_deadline_s
                                   - w.aggregation_latency_s - t_d[..., 0], 0.0)
 
-        sol = SOLVER.solve_fleet(
-            h_up, pop.num_samples, pop.cpu_hz, pop.tx_power, pop.max_prune,
-            m_round, mask, cap, bandwidth_hz=b_hz, noise_psd=n0,
-            waterfall_m0=w.waterfall_m0, model_bits=w.model_bits,
-            cycles_per_sample=w.cycles_per_sample, weight=cfg.weight,
-            solver=cfg.solver)
+        clients = (h_up, pop.num_samples, pop.cpu_hz, pop.tx_power,
+                   pop.max_prune, mask)
+        gathered = cohort is not None and cohort.shape[-1] < mask.shape[-1]
+        if gathered:
+            clients = tuple(torch.take_along_dim(a, cohort, dim=-1)
+                            for a in clients)
+        *clients, solve_mask = clients
+        sol = _solve_cells_chunked(cfg.control_chunk, *clients, m_round,
+                                   solve_mask, cap, **solve_kw)
+        if gathered:
+            def scatter(v):
+                return torch.zeros_like(mask, dtype=v.dtype).scatter(
+                    -1, cohort, v)
+            sol = sol._replace(prune=scatter(sol.prune),
+                               bandwidth=scatter(sol.bandwidth),
+                               per=scatter(sol.per))
 
         t_c = CF.training_latency(sol.prune, pop.num_samples,
                                   w.cycles_per_sample, pop.cpu_hz)
@@ -383,10 +551,15 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
         strag = SCHED.straggler_mask(sched, draws.u_strag)
         arrivals = (draws.u_arr >= sol.per).to(h_up.dtype)
         return RoundControl(mask=mask, strag=strag, arrivals=arrivals,
-                            sol=sol, t_client=t_client, m_round=m_round)
+                            sol=sol, t_client=t_client, m_round=m_round,
+                            cohort=cohort)
 
     return control
 
+
+# ---------------------------------------------------------------------------
+# Synchronous rounds
+# ---------------------------------------------------------------------------
 
 def _round_activity(cfg: FleetConfig, pop: TOPO.ClientPopulation,
                     ctl: RoundControl):
@@ -425,6 +598,25 @@ def _round_metrics(cfg: FleetConfig, pop: TOPO.ClientPopulation,
     return metrics, q_eff
 
 
+def _sgd(params: PyTree, g_wsum: PyTree, w_sum: torch.Tensor, lr: float
+         ) -> PyTree:
+    """p - lr g / sum w, leaf by leaf; no step where every weight is 0."""
+    denom = torch.where(w_sum > 0, w_sum, 1.0)
+    return pruning.tree_map(
+        lambda p, g: torch.where(w_sum > 0, (p - lr * g / denom).to(p.dtype),
+                                 p), params, g_wsum)
+
+
+def _with_eval(metrics: dict, task: TASK.FleetTask, state: PyTree,
+               params: PyTree) -> dict:
+    """The task's eval metrics folded in ("accuracy", the rest under an
+    ``eval_`` prefix)."""
+    ev = dict(task.eval_metrics(state, params))
+    metrics["accuracy"] = ev.pop("accuracy")
+    metrics.update({f"eval_{k}": v for k, v in ev.items()})
+    return metrics
+
+
 def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
                          state: PyTree, pop: TOPO.ClientPopulation,
                          data: PyTree):
@@ -436,25 +628,204 @@ def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
         mask, sol = ctl.mask, ctl.sol
         active, arrivals, agg_w = _round_activity(cfg, pop, ctl)
         g_wsum, w_sum, mean_loss = _fleet_grads(task, params, sol.prune,
-                                                agg_w, mask, cfg, data)
-        denom = torch.where(w_sum > 0, w_sum, 1.0)
-
-        def sgd(p, g):
-            return torch.where(w_sum > 0, (p - cfg.lr * g / denom).to(p.dtype),
-                               p)
-
-        new_params = {name: {leaf: sgd(p, g_wsum[name][leaf])
-                             for leaf, p in layer.items()}
-                      for name, layer in params.items()}
+                                                agg_w, mask, cfg, data,
+                                                cohort=ctl.cohort)
+        new_params = _sgd(params, g_wsum, w_sum, cfg.lr)
         metrics, q_eff = _round_metrics(cfg, pop, ctl, active, arrivals,
                                         mean_loss)
-        ev = dict(task.eval_metrics(state, new_params))
-        metrics["accuracy"] = ev.pop("accuracy")
-        metrics.update({f"eval_{k}": v for k, v in ev.items()})
+        metrics = _with_eval(metrics, task, state, new_params)
         return (new_params, per_sum + q_eff, prune_sum + sol.prune * mask), \
             metrics
 
     return apply_round
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous (FedBuff) events
+# ---------------------------------------------------------------------------
+
+class AsyncState(NamedTuple):
+    """Every client's in-flight update: the (C, I) fields describe the
+    update each client is computing or uploading and are overwritten when
+    it relaunches; the (C,) fields are the per-cell solver figures of the
+    latest control draw."""
+
+    ready: torch.Tensor       # (C, I) absolute arrival time, s
+    start_ver: torch.Tensor   # (C, I) server version at download (int64)
+    rho: torch.Tensor         # (C, I) pruning rate in flight
+    per: torch.Tensor         # (C, I) solved packet error prob
+    sched: torch.Tensor       # (C, I) participation mask at start
+    alive: torch.Tensor       # (C, I) survived churn, finite latency
+    arrive: torch.Tensor      # (C, I) packet success indicator
+    m_cell: torch.Tensor      # (C,) surrogate m at start
+    deadline_c: torch.Tensor  # (C,) solver deadline t~*, s
+    bwutil_c: torch.Tensor    # (C,) sum B_i / B
+    per_sum: torch.Tensor     # (C, I) Theorem-1 q accumulator
+    prune_sum: torch.Tensor   # (C, I) Theorem-1 rho accumulator
+
+
+def _fresh_state(t_client, mask, strag, arrivals, prune, per, bandwidth,
+                 deadline, m_round, *, now, version, retry, b_hz
+                 ) -> AsyncState:
+    """A just-launched AsyncState for one control draw (any cell slice)."""
+    return AsyncState(
+        ready=SCHED.arrival_times(now, t_client, retry),
+        start_ver=torch.full(mask.shape, version, dtype=torch.int64,
+                             device=mask.device),
+        rho=prune, per=per, sched=mask,
+        alive=strag * torch.isfinite(t_client).to(mask.dtype),
+        arrive=arrivals, m_cell=m_round, deadline_c=deadline,
+        bwutil_c=torch.sum(bandwidth, dim=-1) / b_hz,
+        per_sum=torch.zeros_like(mask), prune_sum=torch.zeros_like(mask))
+
+
+def _merge_state(new: AsyncState, prev: AsyncState,
+                 coh: torch.Tensor) -> AsyncState:
+    """Cohort members adopt the fresh launch, everyone else stays in
+    flight; the per-cell figures follow the new draw.  Elementwise over
+    cells."""
+    def pick(n, p):
+        return torch.where(coh > 0, n, p)
+
+    return new._replace(
+        **{f: pick(getattr(new, f), getattr(prev, f))
+           for f in ("ready", "start_ver", "rho", "per", "sched", "alive",
+                     "arrive")},
+        per_sum=prev.per_sum, prune_sum=prev.prune_sum)
+
+
+def _start_state(ctl: RoundControl, now, version: int,
+                 prev: Optional[AsyncState], coh: Optional[torch.Tensor],
+                 cfg: FleetConfig) -> AsyncState:
+    """(Re)launch clients: cohort members (everyone, at the start) adopt
+    the fresh control draw and an arrival time at their own latency.
+    ``cfg.control_chunk`` rebuilds the state a block of cells at a time."""
+    sol = ctl.sol
+    cell_args = (ctl.t_client, ctl.mask, ctl.strag, ctl.arrivals, sol.prune,
+                 sol.per, sol.bandwidth, sol.deadline, ctl.m_round)
+    kw = dict(now=now, version=version,
+              retry=cfg.async_config.retry_backoff_s,
+              b_hz=cfg.wireless.bandwidth_hz)
+
+    def build(ops):
+        new = _fresh_state(*ops[0], **kw)
+        return new if ops[1] is None else _merge_state(new, ops[1], ops[2])
+
+    return _map_cell_blocks(build, cfg.control_chunk, (cell_args, prev, coh))
+
+
+def _buffer_grads(task: TASK.FleetTask, cfg: FleetConfig, hist: PyTree,
+                  head: int, tau: torch.Tensor, batch: PyTree,
+                  rho: torch.Tensor, w_merge: torch.Tensor):
+    """The buffer's weighted gradient sum, each update at its download
+    version, and its per-client losses.
+
+    The clients are bucketed by ring slot (param version); each populated
+    slot, in ascending order, takes its own clients only: one ranking (the
+    fused path's ``tile_norms`` launch) and one gradient call, summed in
+    slot order.  Gathering the slot's clients keeps the work at K clients
+    an event (passing the whole buffer with zero weights outside the slot,
+    as the reference's static shapes force, costs K per populated slot).
+    Finding the populated slots is the event's one host sync."""
+    hist_len = cfg.async_config.history_len
+    slot = (head - torch.clamp(tau, 0, hist_len - 1)) % hist_len
+    counts = torch.bincount(slot, minlength=hist_len).tolist()
+    order = torch.argsort(slot, stable=True)
+    g_wsum = pruning.tree_map(lambda a: torch.zeros_like(a[0]), hist)
+    losses = torch.zeros_like(w_merge)
+    at = 0
+    for s, count in enumerate(counts):
+        if not count:
+            continue
+        idx = order[at:at + count]
+        at += count
+        params_s = pruning.tree_map(lambda a: a[s], hist)
+        g, l_s = _grads_fn(task, params_s, cfg)(
+            rho[idx], {k: v[idx] for k, v in batch.items()}, w_merge[idx])
+        g_wsum = pruning.tree_map(lambda a, b: a + b.to(a.dtype), g_wsum, g)
+        losses = losses.index_copy(0, idx, l_s.to(losses.dtype))
+    return g_wsum, losses
+
+
+def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
+                     pop: TOPO.ClientPopulation, data: PyTree):
+    """One server event: fill the buffer with the K earliest arrivals,
+    merge them (staleness-discounted) against the ring buffer, bump the
+    version, relaunch the merged clients with the control draw ``ctl``."""
+    acfg = cfg.async_config
+    agg_latency = cfg.wireless.aggregation_latency_s
+    n = cfg.topology.num_clients
+    k_buf = acfg.cohort_buffer(n)
+    hist_len = acfg.history_len
+    k_all = pop.num_samples
+    k_flat = k_all.reshape(-1)
+    dtype = k_all.dtype
+
+    def step(carry, ctl: RoundControl):
+        hist, head, version, now, st = carry
+
+        # 1. the buffer fills with the K earliest pending arrivals
+        sel, t_fill = SCHED.select_arrivals(st.ready, k_buf)
+        now2 = t_fill + agg_latency
+        coh = torch.zeros(n, dtype=dtype, device=k_all.device).index_fill(
+            0, sel, 1.0).reshape(st.ready.shape)
+
+        def gather(a):
+            return a.reshape(-1)[sel]
+
+        # 2. staleness-discounted merge weights
+        tau = version - gather(st.start_ver)
+        ok = gather(st.arrive * st.sched * st.alive)
+        w_merge = AGG.buffered_weights(
+            k_flat[sel], ok, tau, kind=acfg.staleness_discount,
+            alpha=acfg.staleness_alpha, max_staleness=acfg.max_staleness,
+            dtype=dtype)
+
+        # 3. gradients at each client's download version, then the step
+        batch = {k: v[sel] for k, v in data.items()}
+        g_wsum, losses = _buffer_grads(task, cfg, hist, head, tau, batch,
+                                       gather(st.rho), w_merge)
+        params = pruning.tree_map(lambda a: a[head], hist)
+        new_params = _sgd(params, g_wsum, torch.sum(w_merge), cfg.lr)
+        version2, head2 = version + 1, (head + 1) % hist_len
+        hist2 = pruning.tree_map(
+            lambda a, p: torch.cat([a[:head2], p[None], a[head2 + 1:]]),
+            hist, new_params)
+
+        # 4. event metrics over the merged cohort (the sync definitions)
+        sched_coh = coh * st.sched
+        n_sched = torch.clamp_min(torch.sum(sched_coh), 1.0)
+        loss_w = gather(st.sched)
+        mean_loss = torch.sum(losses * loss_w) / torch.clamp_min(
+            torch.sum(loss_w), 1.0)
+        q_eff = 1.0 - st.sched * st.alive * (1.0 - st.per)
+        fresh = (tau <= acfg.max_staleness).to(dtype)
+        learning = torch.sum(torch.where(
+            coh > 0,
+            st.m_cell[:, None] * k_all * (q_eff + k_all * st.rho) * st.sched,
+            0.0))
+        metrics = {
+            "loss": mean_loss,
+            "round_latency": now2 - now,
+            "deadline": st.deadline_c,
+            "mean_prune": torch.sum(coh * st.rho * st.sched) / n_sched,
+            "mean_per": torch.sum(coh * q_eff * st.sched) / n_sched,
+            "participants": torch.sum(ok * fresh),
+            "bandwidth_util": st.bwutil_c,
+            "learning_cost": learning,
+            "staleness": torch.mean(tau.to(dtype)),
+            "sim_time": now2,
+        }
+        metrics = _with_eval(metrics, task, state, new_params)
+
+        # 5. the merged clients download version2 and start again
+        st2 = _start_state(ctl, now2, version2, st, coh, cfg)._replace(
+            per_sum=st.per_sum + torch.where(coh > 0, q_eff, 1.0),
+            prune_sum=st.prune_sum + torch.where(coh > 0, st.rho * st.sched,
+                                                 0.0))
+        return (hist2, head2, version2, now2, st2), metrics
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -463,9 +834,11 @@ def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
 
 @dataclasses.dataclass
 class Simulation:
-    """A built fleet run.  ``step(carry, r)`` runs round r;
-    ``simulate(params)`` runs every round from ``params``; ``finalize``
-    turns the output into a ``FleetResult``."""
+    """A built fleet run.  ``step(carry, r)`` runs round (sync) or event
+    (async) r; ``simulate(params)`` runs them all from ``params``;
+    ``finalize`` turns the output into a ``FleetResult``.  A step is
+    ``apply(carry, control(r))``: the control pass depends on the draws
+    alone, so it can be timed apart."""
 
     cfg: FleetConfig
     task: TASK.FleetTask
@@ -474,24 +847,43 @@ class Simulation:
     population: TOPO.ClientPopulation
     data: PyTree
     draws: Any
+    mode: str = "sync"
 
     def __post_init__(self):
         self._control = _make_control_fn(self.cfg, self.population)
-        self._apply = _make_apply_round_fn(self.cfg, self.task,
-                                           self.task_state, self.population,
-                                           self.data)
+        make = (_make_async_step if self.mode == "async"
+                else _make_apply_round_fn)
+        self._apply = make(self.cfg, self.task, self.task_state,
+                           self.population, self.data)
 
     def control(self, r: int) -> RoundControl:
-        """Round r's control half: channel, schedule, solver, draws."""
-        return self._control(self.draws.round(r, self.population))
+        """The control pass step r consumes: draw r in a sync round; in
+        async event r, the relaunch's draw r + 1 (draw 0 launched the
+        fleet)."""
+        k = r + 1 if self.mode == "async" else r
+        return self._control(self.draws.round(k, self.population))
 
     def apply(self, carry, ctl: RoundControl):
-        """A round's model half: gradients, Eq.-(5) step, metrics."""
+        """A step's model half: gradients, the merge, metrics (async: and
+        the merged clients' relaunch with ``ctl``)."""
         return self._apply(carry, ctl)
 
     def init_carry(self, params: PyTree):
-        zeros = torch.zeros_like(self.population.pathloss)
-        return (params, zeros, zeros)
+        """Sync: (params, q sum, rho sum).  Async: the ring buffer with
+        ``params`` in slot 0, head, version, time and the fleet launched
+        at t = 0 with draw 0."""
+        if self.mode == "sync":
+            zeros = torch.zeros_like(self.population.pathloss)
+            return (params, zeros, zeros)
+        hist_len = self.cfg.async_config.history_len
+        hist = pruning.tree_map(
+            lambda p: torch.cat([p[None], p.new_zeros(
+                (hist_len - 1,) + tuple(p.shape))]), params)
+        now = torch.zeros((), dtype=self.population.pathloss.dtype,
+                          device=self.population.pathloss.device)
+        ctl0 = self._control(self.draws.round(0, self.population))
+        return (hist, 0, 0, now, _start_state(ctl0, now, 0, None, None,
+                                              self.cfg))
 
     def step(self, carry, r: int):
         return self.apply(carry, self.control(r))
@@ -509,8 +901,13 @@ class Simulation:
         """Host-side FleetResult, with the Theorem-1 bound on the realized
         (q, rho) averages."""
         cfg = self.cfg
-        params, per_sum, prune_sum = carry
         host = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+        if self.mode == "async":
+            hist, head, _, _, st = carry
+            params = pruning.tree_map(lambda a: a[head], hist)
+            per_sum, prune_sum = st.per_sum, st.prune_sum
+        else:
+            params, per_sum, prune_sum = carry
         avg_per = per_sum.detach().cpu().numpy().reshape(-1) / cfg.rounds
         avg_prune = prune_sum.detach().cpu().numpy().reshape(-1) / cfg.rounds
         bound = ConvergenceBound(
@@ -528,11 +925,11 @@ class Simulation:
             bandwidth_util=host["bandwidth_util"],
             learning_cost=host["learning_cost"],
             bound_final=float(bound.bound(cfg.rounds, avg_per, avg_prune)),
-            params={name: {k: v.detach().cpu().numpy()
-                           for k, v in layer.items()}
-                    for name, layer in params.items()},
-            wall_clock=np.cumsum(latencies),
-            staleness=np.zeros_like(latencies),
+            params=pruning.tree_map(lambda v: v.detach().cpu().numpy(),
+                                    params),
+            wall_clock=host.get("sim_time", np.cumsum(latencies)),
+            staleness=host.get("staleness", np.zeros_like(latencies)),
+            mode=self.mode,
         )
 
 
@@ -550,10 +947,13 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
 
     Args:
       cfg: the run configuration.
-      mode: ``"sync"`` (async is not ported yet and raises).
+      mode: ``"sync"`` (FedSGD rounds) or ``"async"`` (FedBuff events).
       device: where everything runs; ``None`` means ``"cuda"``.
       dtype: the float dtype of the run (the reference's x64 flag).
-      draws: the draw source (default ``GeneratorDraws(cfg.seed, device)``).
+      draws: the draw source (default ``GeneratorDraws(cfg.seed, device)``,
+        with Gumbel draws when the schedule is partial).  Injected draws
+        must carry ``gumbel`` under a partial schedule, and one draw more
+        than ``cfg.rounds`` in async mode.
       start: optional ``SimStart`` (initial params, task state, cached
         client batches); by default they are drawn from the task with
         generators seeded from ``cfg.seed``.
@@ -565,13 +965,16 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
     dev = resolve_device(device)
     task = resolve_task(cfg)
     topo = cfg.topology
+    partial = SCHED.draws_participation(cfg.schedule, topo.clients_per_cell)
     if draws is None:
-        draws = GeneratorDraws(cfg.seed, dev)
+        draws = GeneratorDraws(cfg.seed, dev, participation=partial)
     pop = draws.population(topo, cfg.wireless.tx_power_ue_w, dtype)
     _check_on_device("the population's tensors", pop, dev)
     if isinstance(draws, InjectedDraws):
         _check_on_device("the injected round draws", tuple(draws._rounds),
                          dev)
+        if partial:
+            draws.check_participation()
 
     if start is None:
         seeds = GeneratorDraws(cfg.seed, dev)
@@ -589,13 +992,13 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
                          tuple(start), dev)
         params, state, data = start
     return Simulation(cfg=cfg, task=task, params=params, task_state=state,
-                      population=pop, data=data, draws=draws)
+                      population=pop, data=data, draws=draws, mode=mode)
 
 
 def run_fleet(cfg: FleetConfig, mode: str = "sync", progress: bool = False,
               *, device=None, dtype: torch.dtype = torch.float32,
               draws=None, start: Optional[SimStart] = None) -> FleetResult:
-    """Simulate ``cfg.rounds`` synchronous fleet rounds (see
+    """Simulate ``cfg.rounds`` sync rounds or async events (see
     ``build_simulation`` for the arguments) and return a ``FleetResult``."""
     sim = build_simulation(cfg, mode, device=device, dtype=dtype,
                            draws=draws, start=start)
@@ -607,3 +1010,18 @@ def run_fleet(cfg: FleetConfig, mode: str = "sync", progress: bool = False,
             print(f"[fleet] round {rnd:4d} loss={result.losses[rnd]:.4f} "
                   f"acc={result.accuracy[rnd]:.4f}")
     return result
+
+
+# ``run(cfg, mode="async")`` reads naturally where the mode is data; it is
+# the same function.
+run = run_fleet
+
+
+def time_to_loss(result: FleetResult, target: float) -> float:
+    """Simulated seconds until the training loss first reaches ``target``
+    (on ``result.wall_clock``, so sync and async compare on one axis);
+    ``inf`` if it never does."""
+    hit = np.flatnonzero(np.asarray(result.losses) <= target)
+    if hit.size == 0:
+        return float("inf")
+    return float(result.wall_clock[hit[0]])

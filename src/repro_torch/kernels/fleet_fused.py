@@ -26,8 +26,14 @@ fused_grads_pallas``; its semantics are those of ``fused_grads_xla``:
 
 ``fused_fleet_grads`` is the wrapper: the kernel for CUDA tensors (counted
 in ``fused_fleet_grads.launches``, one per call; the csrc kernel and pass
-of each of the call's launches in ``fused_fleet_grads.last_passes``), the
-plain version for CPU tensors.
+of each of the call's launches in ``fused_fleet_grads.last_passes``, its
+client count in ``last_clients``), the plain version for CPU tensors.
+
+``reference_grads`` is the reference's vmap oracle (``masked_client_grads``
+under ``block_masks``): per-client autodiff at the pruned point with
+``torch.func``, which forms the (clients, params) gradient batch.  It is
+no Pallas kernel and has none here; the fleet engine's
+``kernel="reference"`` path runs ``masked_client_grads``.
 """
 
 from __future__ import annotations
@@ -39,9 +45,11 @@ import torch
 
 from repro_torch.core import pruning
 from repro_torch.kernels import build
+from repro_torch.models import mlp
 
 __all__ = ["layer_weights", "grads_tree", "layer_norm_states", "layer_keeps",
-           "fused_grads_plain", "fused_fleet_grads", "segments"]
+           "fused_grads_plain", "fused_fleet_grads", "segments",
+           "masked_client_grads", "weighted_sum", "reference_grads"]
 
 # dW row segments per layer, fixed so the sum order is fixed: at the slice's
 # 80,000 rows the input layer's 7 x 150 dW CTAs fill 4 waves of 2 CTAs on
@@ -305,13 +313,57 @@ def fused_fleet_grads(params: dict, x: torch.Tensor, y: torch.Tensor,
     kernel (float32 only; anything else raises); a CPU ``x`` runs the plain
     version.  Mis-shaped operands raise on either."""
     _check_shapes(*layer_weights(params), x, y, keeps, weights, block)
+    c = x.shape[0]
     if not x.is_cuda:
         return fused_grads_plain(params, x, y, keeps, weights, block)
     out = _fused_cuda(params, x, y, keeps, weights, block)
     fused_fleet_grads.launches += 1
+    fused_fleet_grads.last_clients = c
     return out
 
 
 fused_fleet_grads.launches = 0
 # (csrc kernel name, pass) of each launch of the last kernel call, in order
 fused_fleet_grads.last_passes = ()
+# the client count of the last kernel call
+fused_fleet_grads.last_clients = 0
+
+
+# ---------------------------------------------------------------------------
+# vmap + autodiff oracle
+# ---------------------------------------------------------------------------
+
+def masked_client_grads(loss_fn, params: dict, masks: dict, batch: dict
+                        ) -> tuple[torch.Tensor, dict]:
+    """Per-client ``(losses, grads)``: client c's gradient of
+    ``loss_fn(params, batch)`` at ``params * masks[c]`` on ``batch[c]``,
+    re-masked.  Every mask leaf leads with the client axis (what the mask
+    builders give for a batch of rates); ``torch.func.vmap`` runs the
+    clients as one batch."""
+    pruned = pruning.apply_masks(params, masks)
+
+    def one(p, b):
+        g, loss = torch.func.grad_and_value(loss_fn)(p, b)
+        return loss, g
+
+    losses, grads = torch.func.vmap(one)(pruned, batch)
+    return losses, pruning.apply_masks(grads, masks)
+
+
+def weighted_sum(weights: torch.Tensor, grads: dict) -> dict:
+    """sum_c weights[c] grads[c], leaf by leaf."""
+    return pruning.tree_map(lambda g: torch.tensordot(weights, g, dims=1),
+                            grads)
+
+
+def reference_grads(params: dict, x: torch.Tensor, y: torch.Tensor,
+                    rho: torch.Tensor, weights: torch.Tensor, block: int
+                    ) -> tuple[dict, torch.Tensor]:
+    """The oracle of ``fused_fleet_grads``: per-client ``block_masks`` at
+    rho, autodiff at the pruned point, re-masked, weighted sum.  Returns
+    ``(grad_wsum, losses)``; forms the (clients, params) batch."""
+    masks = pruning.block_masks(params, rho, block)
+    losses, grads = masked_client_grads(
+        lambda p, b: mlp.classifier_loss(p, b["x"], b["y"]), params, masks,
+        {"x": x, "y": y})
+    return weighted_sum(weights, grads), losses

@@ -59,12 +59,13 @@ def population_from_numpy(pop: Any, dtype: torch.dtype = torch.float32,
                               for f in ClientPopulation._fields))
 
 
-def round_draws_from_numpy(h_up, h_down, u_strag, u_arr,
+def round_draws_from_numpy(h_up, h_down, u_strag, u_arr, gumbel=None,
                            dtype: torch.dtype = torch.float32,
                            device=None) -> RoundDraws:
-    """One round's gains and uniforms -> ``RoundDraws``."""
-    return RoundDraws(*(tensor(a, dtype, device)
-                        for a in (h_up, h_down, u_strag, u_arr)))
+    """One draw's gains and uniforms, and the Gumbel scores a partial
+    schedule ranks (``None`` for a full one) -> ``RoundDraws``."""
+    return RoundDraws(*(None if a is None else tensor(a, dtype, device)
+                        for a in (h_up, h_down, u_strag, u_arr, gumbel)))
 
 
 def start_from_numpy(params: Mapping, task_state: Mapping, batches: Mapping,

@@ -1,18 +1,22 @@
-"""The slice as a whole: the port's synchronous fused fleet round against
-the JAX engine.
+"""The slice as a whole: the port's synchronous fleet rounds against the
+JAX engine.
 
-The JAX sync simulation is built at 2 cells x 4 clients (and 3 cells in
-chunks of 2, see ``CASES``) on a ragged MLP
-(32 -> 12 -> 6 -> 5, block 8) with ``kernel="fused"`` under
-``jax.enable_x64(True)``.  Its params, population, task state and cached
-client batches are carried across with ``repro_torch.weights``; its
-per-round draws are rebuilt with the engine's own key splits (round key
--> fade / participation / straggler / arrival keys; fading through
-``topology.sample_fading``) and injected.  Every round's control, the
-trajectories, the final params and the Theorem-1 bound must then agree
-at 1e-5 relative: both sides run float64 through the same algorithm, so
-what is left is rounding (the absolute floors below cover exact zeros
-and ulp cancellations in dimensionless fields).
+The JAX sync simulation is built at 2 cells x 4 clients (and larger
+fleets, see ``CASES``) on a ragged MLP
+(32 -> 12 -> 6 -> 5, block 8) under ``jax.enable_x64(True)``: the fused
+kernel; the reference kernel with magnitude and with block masks; uniform
+and weighted partial participation on the cohort path; a ragged
+``control_chunk``.  Its params, population, task state and cached client
+batches are carried across with ``repro_torch.weights``; its per-round
+draws are rebuilt with the engine's own key splits (round key -> fade /
+participation / straggler / arrival keys; fading through
+``topology.sample_fading``, the schedule's scores through
+``jax.random.gumbel``) and injected.  Every round's control (masks,
+cohorts and packet draws exactly), the trajectories, the final params and
+the Theorem-1 bound must then agree at 1e-5 relative: both sides run
+float64 through the same algorithm, so what is left is rounding (the
+absolute floors below cover exact zeros and ulp cancellations in
+dimensionless fields).
 """
 
 import dataclasses
@@ -37,20 +41,33 @@ from repro_torch.fleet import topology as TTOPO
 RTOL = 1e-5
 TASK_KW = dict(feature_dim=32, hidden=(12, 6), num_classes=5,
                test_samples=64, prune_block=8)
-# (schedule, topology, cell_chunk): full participation; stragglers plus a
-# binding round deadline (the solver's cap branch); 3 cells in chunks of 2
-# (the chunked gradient sum with its exact-sized ragged tail)
+UNIFORM = dict(participation="uniform", participants_per_cell=2)
+# (schedule, topology, FleetConfig overrides): full participation;
+# stragglers plus a binding round deadline (the solver's cap branch); 3
+# cells in chunks of 2 (the chunked gradient sum with its exact-sized
+# ragged tail); the reference kernel with either mask rule; partial
+# schedules on the cohort path; the control pass blocked over cells with
+# a ragged last block
 CASES = {
-    "full": ({}, (2, 4), 0),
+    "full": ({}, (2, 4), {}),
     "stragglers_deadline": (dict(straggler_prob=0.25, round_deadline_s=0.6),
-                            (2, 4), 0),
-    "ragged_cell_chunks": ({}, (3, 4), 2),
+                            (2, 4), {}),
+    "ragged_cell_chunks": ({}, (3, 4), dict(cell_chunk=2)),
+    "reference_magnitude": ({}, (2, 4), dict(kernel="reference")),
+    "reference_block": ({}, (2, 4), dict(kernel="reference",
+                                         mask_kind="block")),
+    "uniform_cohort": (UNIFORM, (3, 5), {}),
+    "weighted_cohort": (dict(participation="weighted",
+                             participants_per_cell=3), (2, 6),
+                        dict(kernel="reference")),
+    "control_chunk_ragged": (dict(UNIFORM, straggler_prob=0.2), (3, 5),
+                             dict(control_chunk=2, cell_chunk=2)),
 }
 
 
-def _configs(schedule, topology=(2, 4), cell_chunk=0, rounds=3):
-    common = dict(kernel="fused", rounds=rounds, lr=0.05,
-                  cell_chunk=cell_chunk)
+def _configs(schedule, topology=(2, 4), extra=None, rounds=3):
+    common = dict(dict(kernel="fused", rounds=rounds, lr=0.05),
+                  **(extra or {}))
     jcfg = JENG.FleetConfig(
         task=JTASK.SyntheticMLPTask(**TASK_KW),
         topology=JTOPO.FleetTopology(*topology),
@@ -62,24 +79,32 @@ def _configs(schedule, topology=(2, 4), cell_chunk=0, rounds=3):
     return jcfg, tcfg
 
 
-def _reference(jcfg):
-    """Run the JAX engine and collect everything the port needs."""
+def _draws(rkey, pop, partial):
+    """One round key's draws, split as the engine splits it."""
+    k_fade, k_part, k_strag, k_arr = jax.random.split(rkey, 4)
+    shape = pop.pathloss.shape
+    h_up, h_down = JTOPO.sample_fading(k_fade, pop.pathloss)
+    gumbel = jax.random.gumbel(k_part, shape) if partial else None
+    return tuple(None if a is None else np.asarray(a) for a in (
+        h_up, h_down, jax.random.uniform(k_strag, shape),
+        jax.random.uniform(k_arr, shape), gumbel))
+
+
+def _reference(jcfg, mode="sync"):
+    """Run the JAX engine and collect everything the port needs: the
+    draws of every key the run reads (R in sync mode, R + 1 in async)."""
     with jax.enable_x64(True):
         cfg2, task, state, params, pop, k_data, keys = \
             JENG._build_common(jcfg)
         _, data = JENG._make_batch_fn(task, state, cfg2, k_data)
-        sim = JENG.build_simulation(jcfg)
+        sim = JENG.build_simulation(jcfg, mode=mode)
         result = sim.finalize(*sim.simulate(sim.params, sim.round_keys))
         control = JENG._make_control_fn(cfg2, pop)
-        ctls, draws = [], []
-        shape = pop.pathloss.shape
-        for rkey in keys[:jcfg.rounds]:
-            k_fade, _, k_strag, k_arr = jax.random.split(rkey, 4)
-            h_up, h_down = JTOPO.sample_fading(k_fade, pop.pathloss)
-            draws.append(tuple(np.asarray(a) for a in (
-                h_up, h_down, jax.random.uniform(k_strag, shape),
-                jax.random.uniform(k_arr, shape))))
-            ctls.append(jax.tree.map(np.asarray, control(rkey)))
+        partial = JSCHED.cohort_size(jcfg.schedule, pop.pathloss.shape[-1]) \
+            < pop.pathloss.shape[-1]
+        used = keys[:jcfg.rounds] if mode == "sync" else keys
+        draws = [_draws(rkey, pop, partial) for rkey in used]
+        ctls = [jax.tree.map(np.asarray, control(rkey)) for rkey in used]
         to_np = lambda t: jax.tree.map(np.asarray, t)
         pop_np = {f: np.asarray(getattr(pop, f))
                   for f in TTOPO.ClientPopulation._fields}
@@ -88,7 +113,7 @@ def _reference(jcfg):
                     data=to_np(data))
 
 
-def _port(tcfg, ref):
+def _port(tcfg, ref, mode="sync"):
     dt, cpu = torch.float64, "cpu"
     draws = TENG.InjectedDraws(
         weights.population_from_numpy(ref["pop"], dt, cpu),
@@ -96,8 +121,8 @@ def _port(tcfg, ref):
          for d in ref["draws"]])
     start = weights.start_from_numpy(ref["params"], ref["state"], ref["data"],
                                      dtype=dt, device=cpu)
-    return TENG.build_simulation(tcfg, device="cpu", dtype=dt, draws=draws,
-                                 start=start)
+    return TENG.build_simulation(tcfg, mode, device="cpu", dtype=dt,
+                                 draws=draws, start=start)
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -114,6 +139,9 @@ def test_round_controls_match(pair):
         for f in ("mask", "strag", "arrivals"):
             np.testing.assert_array_equal(getattr(tc, f).numpy(),
                                           getattr(jc, f), err_msg=f)
+        assert (tc.cohort is None) == (jc.cohort is None)
+        if jc.cohort is not None:
+            np.testing.assert_array_equal(tc.cohort.numpy(), jc.cohort)
         np.testing.assert_allclose(tc.t_client.numpy(), jc.t_client,
                                    rtol=RTOL, err_msg="t_client")
         np.testing.assert_allclose(tc.m_round.numpy(), jc.m_round, rtol=RTOL)
@@ -154,23 +182,37 @@ def test_default_draws_are_seed_deterministic_on_cpu():
     assert a.losses.shape == (2,) and np.isfinite(a.losses).all()
 
 
+def test_default_config_runs_the_reference_kernel_on_cpu():
+    """``FleetConfig()``: 16 x 64 clients, 50 rounds, the reference kernel
+    with magnitude masks (the engine's defaults)."""
+    cfg = TENG.FleetConfig()
+    assert (cfg.kernel, cfg.mask_kind) == ("reference", "magnitude")
+    res = TENG.run_fleet(cfg, device="cpu")
+    assert res.losses.shape == (50,) and np.isfinite(res.losses).all()
+    assert res.losses[-1] < res.losses[0]
+
+
 @pytest.mark.parametrize("change", [
-    dict(kernel="reference"), dict(cloud_period=2), dict(control_chunk=1),
-    dict(cohort_gather=True), dict(cache_data=False),
-    dict(schedule=TSCHED.ScheduleConfig(participation="uniform",
-                                        participants_per_cell=2)),
+    dict(telemetry={"gradients": True}), dict(cloud_period=2),
+    dict(geometry=JTOPO.HexInterference()), dict(cloud_period=1),
+    dict(cache_data=False), dict(task=None, dirichlet_alpha=0.3),
 ])
 def test_unported_configs_raise(change):
+    """What the port does not carry yet raises, naming its Queue A item
+    (6c: Dirichlet and streaming data; 6d: hex geometry; 6f: two-tier;
+    6g: telemetry)."""
     _, tcfg = _configs({})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*6|6.*ROADMAP"):
         TENG.build_simulation(dataclasses.replace(tcfg, **change),
                               device="cpu")
 
 
 def test_async_mode_raises():
+    """Async runs now; async two-tier (``cloud_period``) still raises."""
     _, tcfg = _configs({})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TENG.run_fleet(tcfg, mode="async", device="cpu")
+    with pytest.raises(NotImplementedError, match=r"\(6f\).*ROADMAP.md"):
+        TENG.run_fleet(dataclasses.replace(tcfg, cloud_period=2),
+                       mode="async", device="cpu")
 
 
 def test_unknown_mask_kind_raises():
@@ -178,3 +220,63 @@ def test_unknown_mask_kind_raises():
     with pytest.raises(ValueError, match="mask_kind"):
         TENG.build_simulation(dataclasses.replace(tcfg, mask_kind="blocks"),
                               device="cpu")
+
+
+@pytest.mark.parametrize("change,what", [
+    (dict(kernel="pallas"), "kernel"), (dict(control_chunk=-1), "control_chunk"),
+    (dict(cloud_period=-1), "cloud_period"),
+])
+def test_invalid_configs_raise_value_error(change, what):
+    _, tcfg = _configs({})
+    with pytest.raises(ValueError, match=what):
+        TENG.build_simulation(dataclasses.replace(tcfg, **change),
+                              device="cpu")
+
+
+@pytest.mark.parametrize("alias", ["fused_xla", "fused_pallas"])
+def test_tpu_kernel_names_are_aliases_of_fused(alias):
+    _, tcfg = _configs({}, rounds=2)
+    a = TENG.run_fleet(tcfg, device="cpu")
+    b = TENG.run_fleet(dataclasses.replace(tcfg, kernel=alias), device="cpu")
+    np.testing.assert_array_equal(a.losses, b.losses)
+
+
+def test_partial_schedule_needs_gumbel_draws():
+    jcfg, tcfg = _configs(UNIFORM, (3, 5), rounds=1)
+    ref = _reference(jcfg)
+    ref["draws"] = [d[:4] + (None,) for d in ref["draws"]]
+    with pytest.raises(ValueError, match="gumbel"):
+        _port(tcfg, ref)
+
+
+def test_cohort_path_equals_full_path_in_float64():
+    """The port's own property: gathering the cohort changes only the
+    association of float sums (1e-6 under float64)."""
+    _, tcfg = _configs(dict(participation="weighted",
+                            participants_per_cell=2), (3, 5),
+                       dict(cell_chunk=2))
+    runs = [TENG.run_fleet(dataclasses.replace(tcfg, cohort_gather=g),
+                           device="cpu", dtype=torch.float64)
+            for g in (None, False)]
+    for f in ("losses", "latencies", "mean_prune", "participants"):
+        np.testing.assert_allclose(getattr(runs[0], f), getattr(runs[1], f),
+                                   rtol=1e-6, err_msg=f)
+    for name, layer in runs[1].params.items():
+        for leaf, v in layer.items():
+            np.testing.assert_allclose(runs[0].params[name][leaf], v,
+                                       rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "reference"])
+def test_control_chunk_is_bitwise_identical(kernel):
+    """Blocking the solve over cells is elementwise over cells: the same
+    bits on the CPU, with or without the cohort path."""
+    for schedule in ({}, UNIFORM):
+        _, tcfg = _configs(schedule, (5, 4), dict(kernel=kernel))
+        a = TENG.run_fleet(tcfg, device="cpu")
+        b = TENG.run_fleet(dataclasses.replace(tcfg, control_chunk=2),
+                           device="cpu")
+        for f in ("losses", "latencies", "deadlines", "bandwidth_util",
+                  "mean_prune", "learning_cost"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                          err_msg=f)

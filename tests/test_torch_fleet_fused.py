@@ -126,6 +126,23 @@ def test_plain_matches_vmap_autodiff_oracle():
 
 
 @needs_jax
+def test_reference_grads_match_jax_vmap_oracle_in_float64():
+    """The port's vmap oracle (``torch.func`` per-client autodiff under
+    ``block_masks``) against the reference's, on the same inputs."""
+    params, x, y, rho, w = _problem(c=9, seed=5)
+    with jax.enable_x64(True):
+        g_ref, l_ref = JFF.reference_grads(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(x), jnp.asarray(y),
+            jnp.asarray(rho), jnp.asarray(w), BLOCK)
+        g_ref = jax.tree.map(np.asarray, g_ref)
+    g, losses = TFF.reference_grads(
+        _torch_tree(params, torch.float64), torch.as_tensor(x),
+        torch.as_tensor(y), torch.as_tensor(rho), torch.as_tensor(w), BLOCK)
+    _assert_grads_close(g, g_ref, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(l_ref), rtol=1e-9)
+
+
+@needs_jax
 def test_all_pruned_and_zero_weight_clients():
     params, x, y, rho, w = _problem()
     keeps = _keeps_np(params, rho)
@@ -327,3 +344,29 @@ def test_cuda_kernel_repeats_bitwise_on_gpu(block, batch):
     for name in g1:
         for leaf in ("w", "b"):
             assert torch.equal(g1[name][leaf], g2[name][leaf]), name
+
+
+@pytest.mark.gpu
+def test_reference_grads_match_fused_kernel_on_gpu():
+    """The vmap oracle on the card (one tile-norm launch for its block
+    masks) against the fused kernel at the paper's DNN, 1e-4 of scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import block_norms as TBN
+    c, batch = 64, 8
+    params, x, y, _, w, _ = _card_args(c, batch, BLOCK)
+    rho = torch.as_tensor(_problem(c=c, batch=batch,
+                                   sizes=(784, 60, 20, 10))[3],
+                          dtype=torch.float32, device="cuda")
+    before = TBN.tile_norms.launches
+    g_ref, l_ref = TFF.reference_grads(params, x, y, rho, w, BLOCK)
+    torch.cuda.synchronize()
+    assert TBN.tile_norms.launches == before + 1
+    keeps = TFF.layer_keeps(TFF.layer_norm_states(params, BLOCK), rho)
+    g, losses = TFF.fused_fleet_grads(params, x, y, keeps, w, BLOCK)
+    torch.testing.assert_close(losses, l_ref, rtol=1e-4, atol=1e-5)
+    for name in g:
+        for leaf in ("w", "b"):
+            scale = float(g_ref[name][leaf].abs().max()) + 1e-6
+            torch.testing.assert_close(g[name][leaf], g_ref[name][leaf],
+                                       rtol=1e-4, atol=1e-4 * scale)

@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_package_covers_the_slice_modules():
     expected = {"core.closed_form", "core.wireless", "core.convergence",
-                "core.pruning", "models.mlp", "kernels.block_norms",
+                "core.pruning", "core.aggregation", "models.mlp", "kernels.block_norms",
                 "kernels.fleet_fused", "fleet.topology", "fleet.scheduler",
                 "fleet.solver", "fleet.task", "fleet.engine", "weights",
                 "configs", "configs.base", "configs.smollm_135m",
