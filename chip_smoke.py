@@ -37,8 +37,9 @@ Phases (any failure exits non-zero and prints no result line):
   5. card vs CPU — a small fleet from the same numpy draws (Gumbel scores
                included) on the CPU (plain versions) and on the card
                (kernels), compared at 1e-4: the sync fused round, the
-               cohort path, async events and the reference kernel with
-               magnitude and with block masks;
+               cohort path, async events, the reference kernel with
+               magnitude and with block masks, and the paths of phases
+               10-12;
   6. serve   — smollm-135m at full width (random weights from a seed,
                bfloat16, pruned at rho = 0.5 on its tile grid) through
                ServeEngine: 64 requests x (32 prompt + 32 new tokens) on 32
@@ -59,11 +60,30 @@ Phases (any failure exits non-zero and prints no result line):
                decreasing, participants <= 2,500, a profiled event;
   9. reference — kernel="reference" with magnitude masks in 1,000-client
                chunks, 2 rounds, beside phase 4's fused rounds; then
-               reference(block) against fused on 2 x 8 clients at 1e-4.
-Phases 7-9 print each round or event's wall (control, apply), loss,
-participants and launches, and rerun bitwise.  The line before the last
-is the kernels JSON (the fleet rows also carry the launches of phases
-7-9); the last is the device JSON.
+               reference(block) against fused on 2 x 8 clients at 1e-4;
+ 10. hex     — HexInterference(reuse 3, 6 neighbours, 25 m mobility,
+               handover) at the slice, default solver, 3 rounds: one fused
+               call and one ranking a round, 0 < fixed-point iterations
+               <= 8, some cell's interference PSD > 0; per round the
+               fixed point's iterations, residual and PSD range, the
+               handover share and mean PER;
+ 11. two-tier — (a) phase 4 with cloud_period 2, 4 rounds: 100 fused
+               calls and 100 rankings a round (one per cell), latencies
+               minus phase 4's equal to the backhaul on merge rounds and 0
+               otherwise; (b) phase 8 with cloud_period 2, 6 events:
+               rankings equal to the populated slots, no fused call
+               (per-client block masks), sim_time non-decreasing;
+ 12. data    — (a) 100,000 clients (2.5 GB of client data, over the
+               512 MB cache limit) streamed, cell_chunk 10, 2 rounds: 10
+               fused calls a round, equal bit for bit to the same run with
+               cache_data=True, peak device memory of both; (b)
+               Dirichlet(0.3) labels at the slice, 3 rounds, beside the IID
+               run's largest-class share.
+Phase 5 also compares hex, two-tier sync and async, Dirichlet and
+streaming fleets card against CPU.  Phases 7-12 print each round or
+event's wall (control, apply), loss, participants and launches, and rerun
+bitwise.  The line before the last is the kernels JSON (the fleet rows
+also carry the launches of phases 7-12); the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -392,7 +412,8 @@ def fused_split(call, iters: int, card: str, passes=None,
 
 def fused_cases(params, data) -> list:
     """(name, wrapper arguments) of phase 3's fused cases at the slice's
-    model and fleet; the second is the timed one, the last has C = 1001."""
+    model and fleet; the second is the timed one, the last two have C = 1001
+    and C = 100 (one cell of a two-tier round: 32-row dW segments)."""
     import torch
     from repro_torch.kernels import fleet_fused as FF
     dev = data["x"].device
@@ -416,7 +437,8 @@ def fused_cases(params, data) -> list:
             case("rho~U[0,0.7]", rho_mixed, w_mixed),
             case("one client prunes all", rho_mixed, w_mixed, kill=3),
             case("zero-weight client", rho_mixed, w_zero),
-            case("C=1001 (not a tile multiple)", rho_mixed, w_mixed, n=1001)]
+            case("C=1001 (not a tile multiple)", rho_mixed, w_mixed, n=1001),
+            case("C=100 (a two-tier cell)", rho_mixed, w_mixed, n=100)]
 
 
 def check_fused(params, data, card: str) -> dict:
@@ -791,7 +813,7 @@ def run_main_path(card: str) -> tuple[list, dict, dict]:
     t0 = time.perf_counter()
     sim = build_simulation(cfg)
     torch.cuda.synchronize()
-    log(f"  build (population, data {tuple(sim.data['x'].shape)} on the card): "
+    log(f"  build (population, data {tuple(sim.data.cached['x'].shape)} on the card): "
         f"{time.perf_counter() - t0:.2f} s [{card}]")
     FF.fused_fleet_grads.launches = 0
     BN.tile_norms.launches = 0
@@ -841,7 +863,8 @@ def run_main_path(card: str) -> tuple[list, dict, dict]:
     if losses2 != losses:
         raise AssertionError(f"rerun losses differ: {losses} vs {losses2}")
     log("  rerun: losses bitwise identical")
-    return losses, counts, dict(busy_ms=busy_ms, warm_ms=sorted(walls[1:]))
+    return losses, counts, dict(busy_ms=busy_ms, warm_ms=sorted(walls[1:]),
+                                latencies=result.latencies.tolist())
 
 
 def profile_round(sim, carry, r: int, card: str, what: str = "round"):
@@ -900,6 +923,8 @@ def numpy_fleet(cells: int, per_cell: int, rounds: int, seed: int = 7):
               rng.uniform(size=shape), rng.uniform(size=shape),
               gumbel.gumbel(size=shape))
              for _ in range(rounds)]
+    draws = [dict(zip(("h_up", "h_down", "u_strag", "u_arr", "gumbel"), d))
+             for d in draws]
     sizes = (DNN["feature_dim"],) + DNN["hidden"] + (DNN["num_classes"],)
     params = {f"layer{i}": {"w": rng.normal(size=(a, b)) * np.sqrt(2.0 / a),
                             "b": np.zeros(b)}
@@ -915,25 +940,52 @@ def numpy_fleet(cells: int, per_cell: int, rounds: int, seed: int = 7):
     return pop, draws, params, state, batches
 
 
+def to_numpy(tree):
+    """A population or round draws (NamedTuples of tensors) as dicts of
+    numpy arrays, None kept."""
+    import torch
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree.cpu().numpy()
+    return {k: to_numpy(v) for k, v in tree._asdict().items()}
+
+
 def card_vs_cpu(card: str, what: str = "sync, fused", mode: str = "sync",
-                **change) -> None:
+                data: str = "cached", **change) -> None:
     """A small fleet (4 x 8 clients, 3 rounds or events) from the same
     numpy draws on the CPU (plain versions) and on the card (kernels):
-    losses, params and (async) the time axis and staleness within TOL."""
+    losses, params and (async) the time axis and staleness within TOL.
+    A hex geometry's population and draws are made on the CPU by the
+    default draw source and carried across as numpy; ``data`` other than
+    "cached" leaves the batches for each device to draw from the numpy
+    task state ("dirichlet": with a numpy Dirichlet(0.3) label table)."""
     import dataclasses
     import numpy as np
+    import torch
     from repro_torch import weights
-    from repro_torch.fleet import InjectedDraws, run_fleet
+    from repro_torch.fleet import GeneratorDraws, InjectedDraws, run_fleet
 
     cells, per_cell, rounds = 4, 8, 3
-    pop, draws, params, state, batches = numpy_fleet(
-        cells, per_cell, rounds + (mode == "async"))
+    n_draws = rounds + (mode == "async")
+    pop, draws, params, state, batches = numpy_fleet(cells, per_cell,
+                                                     n_draws)
     cfg = dataclasses.replace(
         slice_config(rounds=rounds, cells=cells, per_cell=per_cell), **change)
+    if cfg.geometry is not None:
+        src = GeneratorDraws(cfg.seed, "cpu", geometry=cfg.geometry)
+        hex_pop = src.population(cfg.topology, cfg.wireless.tx_power_ue_w,
+                                 torch.float32)
+        pop = to_numpy(hex_pop)
+        draws = [to_numpy(src.round(r, hex_pop)) for r in range(n_draws)]
+    if data == "dirichlet":
+        gam = np.random.default_rng(8).gamma(0.3, size=(cells * per_cell,
+                                                        DNN["num_classes"]))
+        state["label_cdf"] = np.cumsum(gam / gam.sum(-1, keepdims=True), -1)
+    if data != "cached":
+        batches = None
     results = {}
     for dev in ("cpu", "cuda"):
         src = InjectedDraws(weights.population_from_numpy(pop, device=dev),
-                            [weights.round_draws_from_numpy(*d, device=dev)
+                            [weights.round_draws_from_numpy(**d, device=dev)
                              for d in draws])
         start = weights.start_from_numpy(params, state, batches, device=dev)
         results[dev] = run_fleet(cfg, mode, device=dev, draws=src,
@@ -961,8 +1013,9 @@ def card_vs_cpu(card: str, what: str = "sync, fused", mode: str = "sync",
 
 
 def card_vs_cpu_paths(card: str) -> None:
-    """Phase 5: the sync fused round, then each path phases 7-9 drive."""
-    from repro_torch.fleet import AsyncConfig, ScheduleConfig
+    """Phase 5: the sync fused round, then each path phases 7-12 drive."""
+    from repro_torch.fleet import (AsyncConfig, HexInterference,
+                                   ScheduleConfig, SolverConfig)
     card_vs_cpu(card)
     card_vs_cpu(card, "cohort: uniform m=3, control_chunk=3",
                 schedule=ScheduleConfig(participation="uniform",
@@ -973,6 +1026,19 @@ def card_vs_cpu_paths(card: str) -> None:
     card_vs_cpu(card, "reference: magnitude masks", kernel="reference")
     card_vs_cpu(card, "reference: block masks", kernel="reference",
                 mask_kind="block")
+    card_vs_cpu(card, "hex: reuse 1, 2 neighbours, mobility 25 m, fp_rtol 0",
+                geometry=HexInterference(reuse=1, max_neighbors=2,
+                                         mobility_m=25.0),
+                solver=SolverConfig(fp_rtol=0.0))
+    card_vs_cpu(card, "two-tier sync, cloud_period 2", cloud_period=2)
+    # a buffer of two whole cells: a cell's clients finish at its deadline,
+    # equal up to rounding, so a buffer splitting a cell would pick by ulps
+    card_vs_cpu(card, "two-tier async, cloud_period 2, buffer 16",
+                mode="async", cloud_period=2,
+                async_config=AsyncConfig(buffer_size=16, max_staleness=4))
+    card_vs_cpu(card, "Dirichlet(0.3) labels", data="dirichlet")
+    card_vs_cpu(card, "streaming, cache_data=False", data="streaming",
+                cache_data=False)
 
 
 # ---------------------------------------------------------------------------
@@ -1003,7 +1069,7 @@ def populated_slots(sim, carry) -> int:
     the in-flight state apart from the engine (the gate's count)."""
     import torch
     from repro_torch.fleet import scheduler as SCHED
-    hist, head, version, _, st = carry
+    hist, head, version, _, st = carry[:5]
     acfg = sim.cfg.async_config
     sel, _ = SCHED.select_arrivals(
         st.ready, acfg.cohort_buffer(sim.cfg.topology.num_clients))
@@ -1012,11 +1078,12 @@ def populated_slots(sim, carry) -> int:
     return int(torch.unique((head - tau.clamp(0, h - 1)) % h).numel())
 
 
-def drive(sim, what: str, card: str, slots: bool = False):
+def drive(sim, what: str, card: str, slots: bool = False, note=None):
     """Every round or event of ``sim`` from its start, timed as control and
     apply, with the launch counts (zeroed first) each one added; returns
     (carry, metrics, walls in ms, launches a step, and a step's populated
-    slots where ``slots`` is set, else its last fused call's clients)."""
+    slots where ``slots`` is set, else its last fused call's clients).
+    ``note(r, ctl, metrics)`` adds to each step's line."""
     import torch
     from repro_torch.kernels import fleet_fused as FF
     zero_fleet_counts()
@@ -1045,6 +1112,8 @@ def drive(sim, what: str, card: str, slots: bool = False):
             extra = (f"staleness={float(m['staleness']):.3f} "
                      f"sim_time={float(m['sim_time']):.4f} s "
                      f"slots={n_slots} ")
+        if note is not None:
+            extra += note(r, ctl, m) + " "
         log(f"  {what} {r}: loss={float(m['loss']):.6f} "
             f"participants={int(m['participants'])} "
             f"latency={float(m['round_latency']):.4f} s {extra}"
@@ -1165,7 +1234,7 @@ def run_reference(card: str, main: dict) -> tuple[dict, dict]:
             slice_config(rounds=1, cells=2, per_cell=8), kernel=kernel,
             mask_kind="block")
         src = InjectedDraws(weights.population_from_numpy(pop, device="cuda"),
-                            [weights.round_draws_from_numpy(*d, device="cuda")
+                            [weights.round_draws_from_numpy(**d, device="cuda")
                              for d in draws])
         start = weights.start_from_numpy(params, state, batches,
                                          device="cuda")
@@ -1186,6 +1255,213 @@ def run_reference(card: str, main: dict) -> tuple[dict, dict]:
         raise AssertionError(f"reference(block) launched {block_counts}, "
                              "not one ranking")
     return counts, block_counts
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12: hex interference, two-tier aggregation, client data
+# ---------------------------------------------------------------------------
+
+HEX_ROUNDS = 3
+# phase 10: the fixed point's last step may stand this many freeze tolerances
+FP_SLACK = 2.0
+TIER_PERIOD, TIER_ROUNDS, TIER_EVENTS = 2, 4, 6
+STREAM_CELLS, STREAM_PER_CELL, STREAM_CHUNK, STREAM_ROUNDS = 100, 1000, 10, 2
+DIRICHLET_ALPHA, DIRICHLET_ROUNDS = 0.3, 3
+
+
+def check_steps(what: str, steps: list, want) -> None:
+    for r, step in enumerate(steps):
+        expect = want(r) if callable(want) else want
+        if step != expect:
+            raise AssertionError(f"{what} {r} launched {step}, not {expect}")
+
+
+def run_hex(card: str) -> dict:
+    """Phase 10: fleet_bench's geometry arm without cell_chunk: 10,000
+    clients, hex cells with reuse 3, 6 co-channel neighbours, 25 m
+    mobility and handover, the default solver (damped fixed point)."""
+    import dataclasses
+    import torch
+    from repro_torch.fleet import HexInterference, build_simulation
+    cfg = dataclasses.replace(
+        slice_config(rounds=HEX_ROUNDS),
+        geometry=HexInterference(reuse=3, max_neighbors=6, mobility_m=25.0,
+                                 handover=True))
+    sim = build_simulation(cfg)
+    geo = sim.population.geometry
+    log(f"  {cfg.topology.num_cells} cells, {geo.nbr_idx.shape[1]} "
+        f"co-channel neighbours a cell ({int(geo.nbr_mask.sum())} real), "
+        f"fp_iters {cfg.solver.fp_iters}, fp_rtol {cfg.solver.fp_rtol}")
+    fp = []
+
+    def note(r, ctl, m):
+        chan = cfg.geometry.round_channel(sim.draws.round(r, sim.population),
+                                          sim.population, cfg.topology)
+        psd = ctl.sol.interference_psd
+        fp.append((int(ctl.sol.fp_iterations), float(psd.max()),
+                   float(ctl.sol.fp_residual)))
+        return (f"fp_iterations={int(ctl.sol.fp_iterations)} "
+                f"fp_residual={float(ctl.sol.fp_residual):.3e} "
+                f"psd=[{float(psd.min()):.3e}, {float(psd.max()):.3e}] W/Hz "
+                f"handover={float(1.0 - chan.served_home.mean()):.4f} "
+                f"mean_per={float(m['mean_per']):.4f}")
+
+    carry, metrics, walls, steps, _ = drive(sim, "hex round", card, note=note)
+    counts = fleet_counts()
+    check_steps("hex round", steps, {"fleet_fused_grads": 1, "tile_norms": 1})
+    if not all(0 < it <= cfg.solver.fp_iters for it, _, _ in fp):
+        raise AssertionError(f"fixed-point iterations {fp}")
+    if not any(top > 0 for _, top, _ in fp):
+        raise AssertionError("no cell saw co-channel interference")
+    # the damped iterate converges on the card: the last step is within
+    # twice the freeze tolerance even where the cap stopped it
+    n0 = cfg.wireless.noise_psd_w_per_hz
+    far = [(r, res, FP_SLACK * cfg.solver.fp_rtol * (n0 + top))
+           for r, (_, top, res) in enumerate(fp)
+           if not res <= FP_SLACK * cfg.solver.fp_rtol * (n0 + top)]
+    if far:
+        raise AssertionError(f"fixed point not converging (round, residual,"
+                             f" limit): {far}")
+    busy = profile_round(sim, carry, cfg.rounds - 1, card, "hex round")
+    log(f"  hex round busy {fmt_ms(busy)}; walls {fmt_walls(walls)} [{card}]")
+    rerun_bitwise(cfg, "sync", metrics["loss"].cpu().tolist(), "hex")
+    del sim
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_two_tier(card: str, main: dict) -> tuple[dict, dict]:
+    """Phase 11: (a) phase 4's configuration with cloud_period 2, 4
+    rounds; (b) phase 8's async configuration with cloud_period 2, 6
+    events."""
+    import dataclasses
+    import torch
+    from repro_torch.fleet import AsyncConfig, build_simulation
+    cfg = dataclasses.replace(slice_config(rounds=TIER_ROUNDS),
+                              cloud_period=TIER_PERIOD)
+    sim = build_simulation(cfg)
+    carry, metrics, walls, steps, _ = drive(sim, "two-tier round", card)
+    cells = cfg.topology.num_cells
+    check_steps("two-tier round", steps,
+                {"fleet_fused_grads": cells, "tile_norms": cells})
+    sync_counts = fleet_counts()
+    lat = metrics["round_latency"].cpu().tolist()
+    backhaul = cfg.wireless.backhaul_s
+    extra = [a - b for a, b in zip(lat, main["latencies"])]
+    want = [backhaul if r % TIER_PERIOD == TIER_PERIOD - 1 else 0.0
+            for r in range(cfg.rounds)]
+    log(f"  latency minus phase 4's single tier: "
+        f"{[f'{e:.6f}' for e in extra]} s (backhaul {backhaul:.6f} s on "
+        f"merge rounds)")
+    if any(abs(e - w) > 1e-5 for e, w in zip(extra, want)):
+        raise AssertionError(f"merge rounds do not price the backhaul: "
+                             f"{extra} against {want}")
+    busy = profile_round(sim, carry, cfg.rounds - 1, card, "two-tier round")
+    log(f"  two-tier round busy {fmt_ms(busy)} against phase 4's "
+        f"{fmt_ms(main['busy_ms'])}; walls {fmt_walls(walls)} [{card}]")
+    rerun_bitwise(cfg, "sync", metrics["loss"].cpu().tolist(), "two-tier")
+    del sim, carry
+    torch.cuda.empty_cache()
+
+    acfg = dataclasses.replace(
+        slice_config(rounds=TIER_EVENTS), cloud_period=TIER_PERIOD,
+        async_config=AsyncConfig(buffer_size=ASYNC_BUFFER,
+                                 max_staleness=ASYNC_STALENESS,
+                                 staleness_discount="polynomial"))
+    sim = build_simulation(acfg, "async")
+    carry, metrics, walls, steps, filled = drive(
+        sim, "two-tier async event", card, slots=True)
+    check_steps("two-tier async event", steps,
+                lambda r: {"fleet_fused_grads": 0, "tile_norms": filled[r]})
+    async_counts = fleet_counts()
+    log("  kernels " + json.dumps(async_counts) + f", populated slots "
+        f"summed over events {sum(filled)}")
+    sim_time = metrics["sim_time"].cpu().tolist()
+    if any(b < a for a, b in zip(sim_time, sim_time[1:])):
+        raise AssertionError(f"sim_time decreased: {sim_time}")
+    if float(metrics["participants"].max()) > ASYNC_BUFFER:
+        raise AssertionError("more participants than the buffer")
+    busy = profile_round(sim, carry, acfg.rounds, card,
+                         "two-tier async event")
+    log(f"  two-tier async event busy {fmt_ms(busy)}; walls "
+        f"{fmt_walls(walls)} [{card}]")
+    rerun_bitwise(acfg, "async", metrics["loss"].cpu().tolist(),
+                  "two-tier async")
+    del sim, carry
+    torch.cuda.empty_cache()
+    return sync_counts, async_counts
+
+
+def label_share(labels) -> float:
+    """Mean over clients of the largest class's share of a client's
+    labels ((n, batch) int64 on the card)."""
+    import torch
+    counts = torch.nn.functional.one_hot(labels, DNN["num_classes"]).sum(1)
+    return float(counts.max(dim=-1).values.double().mean()) / labels.shape[1]
+
+
+def run_data(card: str) -> tuple[dict, dict]:
+    """Phase 12: (a) 100,000 clients streamed (2.5 GB of float32 client
+    data, over the 512 MB cache limit) against the same run cached; (b)
+    Dirichlet(0.3) labels at the 10k slice."""
+    import dataclasses
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.fleet import SyntheticMLPTask, build_simulation
+    cfg = dataclasses.replace(
+        slice_config(rounds=STREAM_ROUNDS, cells=STREAM_CELLS,
+                     per_cell=STREAM_PER_CELL), cell_chunk=STREAM_CHUNK)
+    runs, peaks = {}, {}
+    for what, c in (("streamed", cfg),
+                    ("cached", dataclasses.replace(cfg, cache_data=True))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sim = build_simulation(c)
+        torch.cuda.synchronize()
+        cached = sim.data.cached
+        log(f"  {what}: build {time.perf_counter() - t0:.2f} s, cache "
+            f"{'none' if cached is None else tuple(cached['x'].shape)}")
+        if (sim.data.cached is None) != (what == "streamed"):
+            raise AssertionError(f"the {what} run's data path is wrong")
+        carry, metrics, walls, steps, _ = drive(sim, f"{what} round", card)
+        peaks[what] = torch.cuda.max_memory_allocated() / 2**30
+        if what == "streamed":
+            check_steps("streamed round", steps,
+                        {"fleet_fused_grads": STREAM_CELLS // STREAM_CHUNK,
+                         "tile_norms": 1})
+            stream_counts = fleet_counts()
+        runs[what] = (metrics["loss"].cpu().tolist(),
+                      [p.cpu() for p in pruning.flatten(carry[0])])
+        log(f"  {what}: {cfg.topology.num_clients} clients, walls "
+            f"{fmt_walls(walls)}, peak device memory {peaks[what]:.3f} GiB "
+            f"[{card}]")
+        del sim, carry
+    (l_s, p_s), (l_c, p_c) = runs["streamed"], runs["cached"]
+    if l_s != l_c or not all(torch.equal(a, b) for a, b in zip(p_s, p_c)):
+        raise AssertionError(f"streamed and cached runs differ: {l_s} vs "
+                             f"{l_c}")
+    log("  streamed and cached runs: losses and params bitwise equal")
+    torch.cuda.empty_cache()
+
+    dcfg = dataclasses.replace(
+        slice_config(rounds=DIRICHLET_ROUNDS),
+        task=SyntheticMLPTask(**DNN, dirichlet_alpha=DIRICHLET_ALPHA))
+    sim = build_simulation(dcfg)
+    n = dcfg.topology.num_clients
+    skew = label_share(sim.data.block(0, n)["y"])
+    iid = label_share(build_simulation(slice_config(rounds=1)
+                                       ).data.block(0, n)["y"])
+    log(f"  mean largest-class share of a client's {DNN['local_batch']} "
+        f"labels: Dirichlet({DIRICHLET_ALPHA}) {skew:.4f}, IID {iid:.4f}")
+    _, metrics, walls, steps, _ = drive(sim, "Dirichlet round", card)
+    check_steps("Dirichlet round", steps,
+                {"fleet_fused_grads": 1, "tile_norms": 1})
+    dirichlet_counts = fleet_counts()
+    rerun_bitwise(dcfg, "sync", metrics["loss"].cpu().tolist(), "Dirichlet")
+    del sim
+    torch.cuda.empty_cache()
+    return stream_counts, dirichlet_counts
 
 
 def fmt_ms(ms) -> str:
@@ -1479,7 +1755,7 @@ def main() -> int:
     warm_profiler()
     from repro_torch.fleet import build_simulation
     probe = build_simulation(slice_config(rounds=1))
-    rows = [check_fused(probe.params, probe.data, card),
+    rows = [check_fused(probe.params, probe.data.cached, card),
             check_tile_norms(probe.params, card)]
     del probe
     serve_rows = [check_matmul(card, transpose=False),
@@ -1508,11 +1784,22 @@ def main() -> int:
     asynced = run_async(card)
     log("[9] the reference kernel")
     reference, reference_block = run_reference(card, main)
+    log("[10] hex cells: interference, mobility, handover")
+    hexed = run_hex(card)
+    log("[11] two-tier aggregation")
+    tier, tier_async = run_two_tier(card, main)
+    log("[12] client data: streaming and Dirichlet labels")
+    streamed, dirichlet = run_data(card)
     for row in rows:
         row["cohort_launches"] = cohort[row["name"]]
         row["async_launches"] = asynced[row["name"]]
         row["reference_launches"] = reference[row["name"]]
         row["reference_block_launches"] = reference_block[row["name"]]
+        row["hex_launches"] = hexed[row["name"]]
+        row["two_tier_launches"] = tier[row["name"]]
+        row["two_tier_async_launches"] = tier_async[row["name"]]
+        row["streaming_launches"] = streamed[row["name"]]
+        row["dirichlet_launches"] = dirichlet[row["name"]]
     rows += serve_rows
 
     print(json.dumps({"kernels": rows}))

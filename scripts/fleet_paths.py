@@ -17,7 +17,14 @@ Paths (``--paths``, any of):
 * ``cohort_chunk25``: the same with ``control_chunk=25`` (phase 7);
 * ``async``: FedBuff events, buffer 2,500, max_staleness 20 (phase 8);
 * ``reference``: ``kernel="reference"``, magnitude masks, 1,000-client
-  chunks (phase 9).
+  chunks (phase 9);
+* ``hex``: hex cells, reuse 3, 6 neighbours, 25 m mobility, handover
+  (phase 10);
+* ``two_tier`` / ``two_tier_async``: ``cloud_period=2`` on the sync round
+  and on the async event (phase 11);
+* ``stream``: 100,000 clients (100 x 1,000), streamed client data,
+  ``cell_chunk=10`` (phase 12a);
+* ``dirichlet``: Dirichlet(0.3) labels (phase 12b).
 
 Every line names the card and its power limit.  It needs a CUDA device.
 """
@@ -34,27 +41,41 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-PATHS = ("full", "cohort", "cohort_chunk25", "async", "reference")
+PATHS = ("full", "cohort", "cohort_chunk25", "async", "reference", "hex",
+         "two_tier", "two_tier_async", "stream", "dirichlet")
 
 
 def config(path: str):
     import chip_smoke as CS
-    from repro_torch.fleet import AsyncConfig, ScheduleConfig
+    from repro_torch.fleet import (AsyncConfig, HexInterference,
+                                   ScheduleConfig, SyntheticMLPTask)
     cfg = CS.slice_config()
     cohort = ScheduleConfig(participation="uniform",
                             participants_per_cell=CS.COHORT_M)
+    async_cfg = AsyncConfig(buffer_size=CS.ASYNC_BUFFER,
+                            max_staleness=CS.ASYNC_STALENESS)
+    if path == "stream":
+        cfg = CS.slice_config(cells=CS.STREAM_CELLS,
+                              per_cell=CS.STREAM_PER_CELL)
     change = {
         "full": {},
         "cohort": dict(schedule=cohort),
         "cohort_chunk25": dict(schedule=cohort,
                                control_chunk=CS.COHORT_CHUNK),
-        "async": dict(async_config=AsyncConfig(
-            buffer_size=CS.ASYNC_BUFFER, max_staleness=CS.ASYNC_STALENESS)),
+        "async": dict(async_config=async_cfg),
         "reference": dict(kernel="reference", mask_kind="magnitude",
                           cell_chunk=CS.REF_CELL_CHUNK),
+        "hex": dict(geometry=HexInterference(reuse=3, max_neighbors=6,
+                                             mobility_m=25.0)),
+        "two_tier": dict(cloud_period=CS.TIER_PERIOD),
+        "two_tier_async": dict(cloud_period=CS.TIER_PERIOD,
+                               async_config=async_cfg),
+        "stream": dict(cell_chunk=CS.STREAM_CHUNK),
+        "dirichlet": dict(task=SyntheticMLPTask(
+            **CS.DNN, dirichlet_alpha=CS.DIRICHLET_ALPHA)),
     }[path]
     return dataclasses.replace(cfg, **change), \
-        "async" if path == "async" else "sync"
+        "async" if "async" in path else "sync"
 
 
 def profile_step(sim, carry, r: int):

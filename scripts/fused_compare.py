@@ -152,7 +152,7 @@ def main() -> int:
     print(card, flush=True)
 
     probe = build_simulation(cs.slice_config(rounds=1))
-    cases = cs.fused_cases(probe.params, probe.data)
+    cases = cs.fused_cases(probe.params, probe.data.cached)
     tree_lib = build.load("fleet_fused")
     src = (build.CSRC / "fleet_fused.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:

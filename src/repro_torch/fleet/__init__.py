@@ -1,17 +1,19 @@
-"""Fleet-scale FL simulation engine (single tier, sync and async).
+"""Fleet-scale FL simulation engine (single and two tier, sync and async).
 
-Batched multi-cell channels (``topology``: orthogonal cells), the
-closed-form trade-off solver batched over cells (``solver``), the
-scheduler's masks, cohorts and async arrivals (``scheduler``), the
-synthetic MLP task (``task``) and the round and event loops (``engine``).
+Batched multi-cell channels (``topology``: orthogonal cells, or hex cells
+with co-channel interference, mobility and handover), the closed-form
+trade-off solver batched over cells with its interference fixed point
+(``solver``), the scheduler's masks, cohorts and async arrivals
+(``scheduler``), the synthetic MLP task with its per-client data
+(``task``) and the round and event loops (``engine``).
 """
 
 from repro_torch.fleet.engine import (  # noqa: F401
-    AsyncState, FleetConfig, FleetResult, GeneratorDraws, InjectedDraws,
-    RoundDraws, SimStart, build_simulation, resolve_task, run, run_fleet,
-    time_to_loss)
+    AsyncState, ClientData, FleetConfig, FleetResult, GeneratorDraws,
+    InjectedDraws, RoundDraws, SimStart, build_simulation, resolve_geometry,
+    resolve_task, run, run_fleet, time_to_loss)
 from repro_torch.fleet.scheduler import AsyncConfig, ScheduleConfig  # noqa: F401
 from repro_torch.fleet.solver import SolverConfig  # noqa: F401
 from repro_torch.fleet.task import FleetTask, SyntheticMLPTask  # noqa: F401
 from repro_torch.fleet.topology import (  # noqa: F401
-    FleetTopology, OrthogonalCells)
+    FleetTopology, HexInterference, OrthogonalCells, make_geometry)

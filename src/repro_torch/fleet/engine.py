@@ -1,8 +1,9 @@
 """Fleet rounds and events: channel -> solver -> pruned FedSGD -> aggregation.
 
-The port of ``repro.fleet.engine``'s single-tier paths.  Two modes share
-one control pass (``_make_control_fn``: channel, schedule, Algorithm 1
-over every cell (``fleet/solver.py``), realized latencies, straggler and
+The port of ``repro.fleet.engine`` (its telemetry comes with ROADMAP.md
+Queue A item 6g).  Two modes share one control pass
+(``_make_control_fn``: the geometry's channel, schedule, Algorithm 1 over
+every cell (``fleet/solver.py``), realized latencies, straggler and
 packet draws):
 
 * ``mode="sync"`` — the paper's FedSGD barrier.  A round ranks the model's
@@ -17,26 +18,49 @@ packet draws):
   a fresh control draw.  With ``buffer_size = 0`` and full participation
   an event is a sync round.
 
+Geometry (``FleetConfig.geometry``): ``OrthogonalCells`` (default) or
+``HexInterference``, whose co-channel graph puts the solve inside the
+solver's damped interference fixed point (the full fleet under the mask:
+no cohort gather, no ``control_chunk`` blocking) and whose realized
+uplink rates price the converged interference PSD (SINR, not SNR).
+
+Two-tier aggregation (``cloud_period = n >= 1``): each cell's BS keeps an
+edge model (one (C, ...) stacked tensor per leaf) that takes its own
+Eq.-(5)-weighted step from its own clients every round (sync: a loop over
+cells, one ranking and one gradient call each) or event (async: the
+buffered per-client gradients, summed per cell in a fixed order); every n
+rounds or events the cloud takes the merged-weight mean of the edges,
+broadcasts it and pays ``WirelessConfig.backhaul_s``.  Metrics evaluate
+the cloud view; async clients only download cloud checkpoints.
+
 Client gradients (``FleetConfig.kernel``): ``"fused"`` streams the clients
 through the fused kernel (``kernels/fleet_fused.py``, block-tile masks;
 ``"fused_xla"`` and ``"fused_pallas"``, which pin TPU execution paths in
 the reference, are aliases of it); ``"reference"`` runs per-client
 autodiff under ``torch.func.vmap`` with magnitude or block masks
 (``mask_kind``), forming the (clients, params) gradient batch, which
-``cell_chunk`` bounds.
+``cell_chunk`` bounds.  The two-tier async event forms per-client
+gradients on either kernel, with block masks under ``"fused"``.
 
 Partial participation (uniform or weighted Gumbel top-k) turns on the
 cohort path (``cohort_gather``): the control pass emits each cell's m
 scheduled clients as a (C, m) index batch, the Algorithm-1 solve runs over
-the gathered cohort and scatters back, and the gradient pass gathers
-rates, weights and cached batches along it, so the hot path scales with
-m, not I.  ``control_chunk`` blocks the solve, and the async rebuild of
-the in-flight state, over cells (elementwise over cells, so bitwise equal
-on the CPU).
+the gathered cohort and scatters back (uncoupled cells only), and the
+gradient pass gathers rates, weights and batches along it, so the hot
+path scales with m, not I.  ``control_chunk`` blocks the solve, and the
+async rebuild of the in-flight state, over cells (elementwise over cells,
+so bitwise equal on the CPU).
+
+Client data (``ClientData``): each client's fixed batch is a pure function
+of (data seed, client) (``FleetTask.client_batch``).  Below the 512 MB
+cache limit (or with ``cache_data=True``) every batch is drawn once onto
+the device; above it (or with ``cache_data=False``) each ``cell_chunk``
+block, cohort gather, cell and async buffer draws its clients again.
+Streaming equals caching bit for bit.
 
 The reference's round ``scan`` is a Python loop here (``Simulation.step``);
-the fleet's cached client data and every round tensor stay on the device.
-Host syncs: one per solver alternation (the control pass), and in async
+every round tensor stays on the device.  Host syncs: one per solver
+alternation and fixed-point iteration (the control pass), and in async
 mode one per event (the populated ring slots).
 
 Randomness comes from a draw source: ``GeneratorDraws`` (the default,
@@ -51,17 +75,13 @@ Precision: ``dtype`` (default float32) plays the part of the reference's
 global x64 flag.  On the card the kernels take float32 only, and
 ``device.resolve_device`` turns TF32 off for matrix products and cuDNN so
 float32 means float32.
-
-What this port does not carry raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it: two-tier ``cloud_period`` (6f),
-``HexInterference`` (6d), telemetry (6g), Dirichlet data and the
-streaming (uncached) data path (6c).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -81,11 +101,10 @@ from repro_torch.kernels import fleet_fused as FUSED
 PyTree = Any
 
 __all__ = ["FleetConfig", "FleetResult", "RoundControl", "RoundDraws",
-           "GeneratorDraws", "InjectedDraws", "SimStart", "Simulation",
-           "AsyncState", "build_simulation", "run_fleet", "run",
-           "resolve_task", "time_to_loss"]
+           "GeneratorDraws", "InjectedDraws", "SimStart", "ClientData",
+           "Simulation", "AsyncState", "build_simulation", "run_fleet",
+           "run", "resolve_task", "resolve_geometry", "time_to_loss"]
 
-_ROADMAP_REST = "see ROADMAP.md Queue A, item 6 (the rest of the engine)"
 KERNELS = ("reference", "fused", "fused_xla", "fused_pallas")
 
 
@@ -101,6 +120,10 @@ class FleetConfig:
     TPU execution paths; here both are aliases of ``"fused"``.
     ``cohort_gather``: None turns the cohort path on exactly when the
     schedule is partial; True forces it; False keeps the full fleet.
+    ``geometry``: None (``OrthogonalCells``) or ``HexInterference``.
+    ``cache_data``: None caches the client batches when the task allows it
+    and they fit 512 MB; True always; False streams them.
+    ``cloud_period``: 0 is single tier; n >= 1 the two-tier hierarchy.
     """
 
     topology: TOPO.FleetTopology = dataclasses.field(
@@ -155,9 +178,14 @@ def resolve_task(cfg: FleetConfig) -> TASK.FleetTask:
         prune_block=cfg.prune_block, dirichlet_alpha=cfg.dirichlet_alpha)
 
 
+def resolve_geometry(cfg: FleetConfig):
+    """The run's cell geometry: ``cfg.geometry`` or orthogonal cells."""
+    return cfg.geometry if cfg.geometry is not None else TOPO.OrthogonalCells()
+
+
 def _check_supported(cfg: FleetConfig, mode: str) -> None:
-    """Raise for invalid configurations (``ValueError``) and for those the
-    port does not carry yet (``NotImplementedError``)."""
+    """Raise for invalid configurations (``ValueError``) and for telemetry,
+    which the port does not carry yet (``NotImplementedError``)."""
     if mode not in ("sync", "async"):
         raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
     if cfg.kernel not in KERNELS:
@@ -173,20 +201,14 @@ def _check_supported(cfg: FleetConfig, mode: str) -> None:
     if cfg.control_chunk < 0:
         raise ValueError(f"control_chunk must be >= 0 (0 = solve all cells "
                          f"at once), got {cfg.control_chunk}")
-    unsupported = []
-    if cfg.cache_data is False:
-        unsupported.append("cache_data=False, streaming client data (6c)")
-    if cfg.geometry is not None and not isinstance(cfg.geometry,
-                                                   TOPO.OrthogonalCells):
-        unsupported.append(f"geometry {type(cfg.geometry).__name__} (6d)")
-    if cfg.cloud_period:
-        unsupported.append(f"cloud_period, two-tier aggregation in {mode} "
-                           "mode (6f)")
+    if not isinstance(resolve_geometry(cfg), (TOPO.OrthogonalCells,
+                                              TOPO.HexInterference)):
+        raise ValueError(f"geometry must be OrthogonalCells or "
+                         f"HexInterference, got {type(cfg.geometry).__name__}")
     if cfg.telemetry is not None:
-        unsupported.append("telemetry (6g)")
-    if unsupported:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(unsupported) + f" — {_ROADMAP_REST}")
+            "not ported yet: telemetry (6g) — see ROADMAP.md Queue A, item "
+            "6 (the rest of the engine)")
 
 
 @dataclasses.dataclass
@@ -230,7 +252,9 @@ class RoundControl(NamedTuple):
 # ---------------------------------------------------------------------------
 
 class RoundDraws(NamedTuple):
-    """One draw's random inputs, all (C, I)."""
+    """One draw's random inputs, all (C, I) unless noted.  The fields from
+    ``ray_up`` on are read by a ``HexInterference`` geometry only (see
+    ``HexInterference.round_draw_shapes``)."""
 
     h_up: torch.Tensor      # uplink power gain (path loss x Rayleigh)
     h_down: torch.Tensor    # downlink power gain
@@ -238,6 +262,11 @@ class RoundDraws(NamedTuple):
     u_arr: torch.Tensor     # U[0, 1): packet arrives when u >= PER
     # standard Gumbel scores of a partial schedule (None for a full one)
     gumbel: Optional[torch.Tensor] = None
+    ray_up: Optional[torch.Tensor] = None        # serving-link Exp(1) fades
+    ray_down: Optional[torch.Tensor] = None
+    jitter: Optional[torch.Tensor] = None        # (C, I, 2) N(0, 1) moves
+    ray_handover: Optional[torch.Tensor] = None  # (C, I, K) Exp(1)
+    ray_cross: Optional[torch.Tensor] = None     # (C, K, I) Exp(1)
 
 
 def _seed(seed: int, stream: str, index: int = 0) -> int:
@@ -250,18 +279,25 @@ class GeneratorDraws:
     purpose, seeded from ``seed``.  Draw r depends only on (seed, r), so a
     simulation can be run again and repeats exactly.  With
     ``participation`` the draws carry a Gumbel tensor from a stream of its
-    own, ``("participation", r)``, so the other streams, and every
-    full-schedule run, are the same with or without it."""
+    own, ``("participation", r)``; a hex ``geometry`` adds the clients'
+    angles (stream ``"angle"``) and its round draws (``("hex", r)``).  So
+    the other streams, and every orthogonal full-schedule run, are the
+    same with or without them."""
 
-    def __init__(self, seed: int, device, participation: bool = False):
+    def __init__(self, seed: int, device, participation: bool = False,
+                 geometry=None):
         self.seed = seed
         self.device = torch.device(device)
         self.participation = participation
+        self.geometry = geometry
 
     def generator(self, stream: str, index: int = 0) -> torch.Generator:
         g = torch.Generator(device=self.device)
         g.manual_seed(_seed(self.seed, stream, index))
         return g
+
+    def _hex(self) -> bool:
+        return isinstance(self.geometry, TOPO.HexInterference)
 
     def population(self, topo: TOPO.FleetTopology, tx_power_w: float,
                    dtype: torch.dtype) -> TOPO.ClientPopulation:
@@ -272,7 +308,13 @@ class GeneratorDraws:
         lo, hi = topo.samples_range
         samples = torch.randint(lo, hi + 1, topo.shape, generator=g,
                                 device=self.device)
-        return TOPO.make_population(topo, tx_power_w, u_dist, u_cpu, samples)
+        pop = TOPO.make_population(topo, tx_power_w, u_dist, u_cpu, samples)
+        if self._hex():
+            angle = (2.0 * math.pi) * torch.rand(
+                topo.shape, generator=self.generator("angle"), dtype=dtype,
+                device=self.device)
+            pop = self.geometry.make_population(topo, pop, angle)
+        return pop
 
     def _exponential(self, shape, dtype, g) -> torch.Tensor:
         return torch.empty(shape, dtype=dtype, device=self.device
@@ -289,9 +331,19 @@ class GeneratorDraws:
         if self.participation:   # -log(Exp(1)) is standard Gumbel
             gumbel = -torch.log(self._exponential(
                 shape, dtype, self.generator("participation", r)))
-        return RoundDraws(h_up=h_up, h_down=h_down,
-                          u_strag=torch.rand(shape, **kw),
-                          u_arr=torch.rand(shape, **kw), gumbel=gumbel)
+        draws = RoundDraws(h_up=h_up, h_down=h_down,
+                           u_strag=torch.rand(shape, **kw),
+                           u_arr=torch.rand(shape, **kw), gumbel=gumbel)
+        if not self._hex():
+            return draws
+        extra = {}
+        gh = self.generator("hex", r)
+        for name, sh in self.geometry.round_draw_shapes(pop).items():
+            extra[name] = (torch.randn(sh, generator=gh, dtype=dtype,
+                                       device=self.device)
+                           if name == "jitter"
+                           else self._exponential(sh, dtype, gh))
+        return draws._replace(ray_up=ray_u, ray_down=ray_d, **extra)
 
 
 class InjectedDraws:
@@ -326,14 +378,33 @@ class InjectedDraws:
                 f"a partial schedule needs RoundDraws.gumbel; injected draws "
                 f"{missing} have none")
 
+    def check_geometry(self, geometry, pop: TOPO.ClientPopulation) -> None:
+        """Raise unless every draw carries what a hex geometry reads: the
+        serving-link fades and ``round_draw_shapes``'s fields, in shape."""
+        if not isinstance(geometry, TOPO.HexInterference):
+            return
+        want = dict(geometry.round_draw_shapes(pop))
+        if want:   # not the orthogonal limit: the serving fades too
+            want.update(ray_up=tuple(pop.pathloss.shape),
+                        ray_down=tuple(pop.pathloss.shape))
+        for r, d in enumerate(self._rounds):
+            for name, shape in want.items():
+                got = getattr(d, name)
+                if got is None or tuple(got.shape) != tuple(shape):
+                    raise ValueError(
+                        f"the hex geometry reads RoundDraws.{name} of shape "
+                        f"{tuple(shape)}; injected draw {r} has "
+                        f"{None if got is None else tuple(got.shape)}")
+
 
 class SimStart(NamedTuple):
     """The model and data side of a run, when the caller supplies it:
-    initial params, the task state and every client's cached batch."""
+    initial params, the task state and every client's cached batch (None:
+    the run draws the batches from the task state, as without a start)."""
 
     params: PyTree
     task_state: PyTree
-    batches: PyTree
+    batches: Optional[PyTree] = None
 
 
 def _check_on_device(what: str, tree, dev: torch.device) -> None:
@@ -354,25 +425,87 @@ def _check_on_device(what: str, tree, dev: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Client gradients
+# Client data
 # ---------------------------------------------------------------------------
 
 _CACHE_LIMIT_BYTES = 512 << 20
+_DRAW_BLOCK = 8192     # clients a cache fill draws at a time
 
+
+class ClientData:
+    """Every client's fixed local batch, cached on the device (``cached``,
+    leading dim = clients) or drawn again at each use from the task's
+    per-client function (``cached is None``: streaming).  Either way a
+    client's batch has the same bits."""
+
+    def __init__(self, task: TASK.FleetTask, state: PyTree, seed: int,
+                 device, cached: Optional[PyTree] = None):
+        self.task, self.state, self.seed = task, state, seed
+        self.device = torch.device(device)
+        self.cached = cached
+
+    @classmethod
+    def draw(cls, task, state, seed: int, num_clients: int, device,
+             cache: bool) -> "ClientData":
+        """The data of a ``num_clients`` fleet; with ``cache`` every batch
+        is drawn now, ``_DRAW_BLOCK`` clients at a time."""
+        data = cls(task, state, seed, device)
+        if cache:
+            parts = [data.block(j, min(j + _DRAW_BLOCK, num_clients))
+                     for j in range(0, num_clients, _DRAW_BLOCK)]
+            data.cached = {k: torch.cat([p[k] for p in parts])
+                           for k in parts[0]}
+        return data
+
+    def take(self, clients: torch.Tensor) -> PyTree:
+        """The batches of the flat client indices ``clients``."""
+        if self.cached is not None:
+            return {k: v[clients] for k, v in self.cached.items()}
+        return self.task.client_batch(self.state, self.seed, clients)
+
+    def block(self, start: int, stop: int) -> PyTree:
+        """The batches of clients ``start`` to ``stop - 1`` (a view of the
+        cache where there is one)."""
+        if self.cached is not None:
+            return {k: v[start:stop] for k, v in self.cached.items()}
+        return self.task.client_batch(
+            self.state, self.seed,
+            torch.arange(start, stop, device=self.device))
+
+
+def _batch_bytes(task: TASK.FleetTask, num_clients: int,
+                 dtype: torch.dtype) -> int:
+    x = num_clients * task.local_batch * task.feature_dim
+    return x * torch.finfo(dtype).bits // 8 + num_clients * task.local_batch * 8
+
+
+def _cache_data(cfg: FleetConfig, task: TASK.FleetTask, dtype) -> bool:
+    """``cfg.cache_data``, with None meaning: cache when the task allows it
+    and the fleet's batches fit ``_CACHE_LIMIT_BYTES``."""
+    if cfg.cache_data is not None:
+        return bool(cfg.cache_data)
+    return task.cache_batches and _batch_bytes(
+        task, cfg.topology.num_clients, dtype) <= _CACHE_LIMIT_BYTES
+
+
+# ---------------------------------------------------------------------------
+# Client gradients
+# ---------------------------------------------------------------------------
 
 def _tree_add(a, b):
     return pruning.tree_map(lambda x, y: x + y, a, b)
 
 
-def _chunk_accumulate(step, arrays: tuple, chunk: int):
-    """Sum ``step(*slice)`` over consecutive ``chunk``-sized axis-0 slices
-    of ``arrays``, in order; a ragged remainder is one exact-sized last
-    slice (no padded rows)."""
-    out = None
-    for j in range(0, arrays[0].shape[0], chunk):
-        part = step(*(a[j:j + chunk] for a in arrays))
-        out = part if out is None else _tree_add(out, part)
-    return out
+def _client_masks(task: TASK.FleetTask, params: PyTree, mask_kind: str):
+    """``rho (n,) -> per-client masks`` at ``params``: block masks from one
+    ranking of the model's tiles (one ``tile_norms`` launch), or magnitude
+    masks from its sorted magnitudes."""
+    if mask_kind == "block":
+        block = task.tile_grid(params)
+        state = pruning.block_norm_state(params, block)
+        return lambda rho: pruning.masks_from_state(params, state, rho, block)
+    mags = pruning.sorted_magnitudes(params)
+    return lambda rho: pruning.magnitude_masks(params, rho, mags=mags)
 
 
 def _grads_fn(task: TASK.FleetTask, params: PyTree, cfg: FleetConfig):
@@ -385,17 +518,7 @@ def _grads_fn(task: TASK.FleetTask, params: PyTree, cfg: FleetConfig):
         prep = task.kernel_prepare(params)
         return lambda rho, batch, w: task.kernel_grads(params, prep, batch,
                                                        rho, w)
-    if cfg.mask_kind == "block":
-        block = task.tile_grid(params)
-        state = pruning.block_norm_state(params, block)
-
-        def masks(rho):
-            return pruning.masks_from_state(params, state, rho, block)
-    else:
-        mags = pruning.sorted_magnitudes(params)
-
-        def masks(rho):
-            return pruning.magnitude_masks(params, rho, mags=mags)
+    masks = _client_masks(task, params, cfg.mask_kind)
 
     def grads(rho, batch, w):
         losses, g = FUSED.masked_client_grads(task.loss, params, masks(rho),
@@ -407,40 +530,37 @@ def _grads_fn(task: TASK.FleetTask, params: PyTree, cfg: FleetConfig):
 
 def _fleet_grads(task: TASK.FleetTask, params: PyTree, rho: torch.Tensor,
                  agg_w: torch.Tensor, sched_w: torch.Tensor,
-                 cfg: FleetConfig, data: PyTree,
+                 cfg: FleetConfig, data: ClientData,
                  cohort: Optional[torch.Tensor] = None):
-    """Weighted-sum gradients over the fleet, cell-chunked.  Returns
-    (grad_wsum, sum agg_w, mean scheduled loss).
+    """Weighted-sum gradients over the fleet, ``cell_chunk`` cells at a
+    time (a ragged remainder is one exact-sized last block), summed in
+    order.  Returns (grad_wsum, sum agg_w, mean scheduled loss).
 
     ``cohort`` ((C, m) scheduled indices) gathers rates, weights and
-    cached batches before the chunk loop, so the gradient pass runs over
-    C m clients, not C I; unscheduled clients weigh 0, so only the
-    association of the float sums changes."""
+    batches, so the gradient pass runs over C m clients, not C I;
+    unscheduled clients weigh 0, so only the association of the float
+    sums changes."""
     c, i = rho.shape
-    xs, ys = data["x"], data["y"]
+    flat = None
     if cohort is not None:
         rho, agg_w, sched_w = (torch.take_along_dim(a, cohort, dim=-1)
                                for a in (rho, agg_w, sched_w))
-        flat = (torch.arange(c, device=cohort.device)[:, None] * i
-                + cohort).reshape(-1)
-        xs, ys = xs[flat], ys[flat]
+        flat = torch.arange(c, device=cohort.device)[:, None] * i + cohort
         i = cohort.shape[-1]
-    xs = xs.reshape((c, i) + xs.shape[1:])
-    ys = ys.reshape((c, i) + ys.shape[1:])
     chunk = cfg.cell_chunk if 0 < cfg.cell_chunk < c else c
     grads = _grads_fn(task, params, cfg)
-
-    def step(c_rho, c_w, c_lw, c_x, c_y):
-        batch = {"x": c_x.reshape((-1,) + c_x.shape[2:]),
-                 "y": c_y.reshape((-1,) + c_y.shape[2:])}
-        w_flat = c_w.reshape(-1)
-        g, losses = grads(c_rho.reshape(-1), batch, w_flat)
-        lw_flat = c_lw.reshape(-1)
-        return (g, torch.sum(w_flat), torch.sum(losses * lw_flat),
+    out = None
+    for j in range(0, c, chunk):
+        k = min(j + chunk, c)
+        batch = (data.block(j * i, k * i) if flat is None
+                 else data.take(flat[j:k].reshape(-1)))
+        w_flat = agg_w[j:k].reshape(-1)
+        lw_flat = sched_w[j:k].reshape(-1)
+        g, losses = grads(rho[j:k].reshape(-1), batch, w_flat)
+        part = (g, torch.sum(w_flat), torch.sum(losses * lw_flat),
                 torch.sum(lw_flat))
-
-    g_wsum, w_sum, loss_sum, loss_w = _chunk_accumulate(
-        step, (rho, agg_w, sched_w, xs, ys), chunk)
+        out = part if out is None else _tree_add(out, part)
+    g_wsum, w_sum, loss_sum, loss_w = out
     return g_wsum, w_sum, loss_sum / torch.clamp_min(loss_w, 1.0)
 
 
@@ -490,12 +610,15 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
     realized latencies -> straggler and packet draws.
 
     On the cohort path the schedule is also a (C, m) index batch; when the
-    schedule is partial the solve runs over the gathered cohort and
-    scatters back, clients outside it taking the fill the full solve gives
-    non-participants (rho = 0, B = 0, q = 0)."""
+    schedule is partial and the cells are uncoupled the solve runs over
+    the gathered cohort and scatters back, clients outside it taking the
+    fill the full solve gives non-participants (rho = 0, B = 0, q = 0).
+    Under interference the whole fleet is solved, under the mask, inside
+    the fixed point, and the realized uplink rates price its converged
+    PSD."""
     w = cfg.wireless
     n0, b_hz = w.noise_psd_w_per_hz, w.bandwidth_hz
-    geo = cfg.geometry if cfg.geometry is not None else TOPO.OrthogonalCells()
+    geo = resolve_geometry(cfg)
     sched = cfg.schedule
     sm = cfg.smoothness
     use_cohort = _cohort_enabled(cfg)
@@ -505,7 +628,7 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
         weight=cfg.weight, solver=cfg.solver)
 
     def control(draws: RoundDraws) -> RoundControl:
-        chan = geo.round_channel(draws.h_up, draws.h_down)
+        chan = geo.round_channel(draws, pop, cfg.topology)
         h_up, h_down = chan.h_up, chan.h_down
         mask, cohort = SCHED.participation_cohort(
             sched, pop.num_samples, draws.gumbel, h_up.dtype)
@@ -527,24 +650,32 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
 
         clients = (h_up, pop.num_samples, pop.cpu_hz, pop.tx_power,
                    pop.max_prune, mask)
-        gathered = cohort is not None and cohort.shape[-1] < mask.shape[-1]
-        if gathered:
-            clients = tuple(torch.take_along_dim(a, cohort, dim=-1)
-                            for a in clients)
-        *clients, solve_mask = clients
-        sol = _solve_cells_chunked(cfg.control_chunk, *clients, m_round,
-                                   solve_mask, cap, **solve_kw)
-        if gathered:
-            def scatter(v):
-                return torch.zeros_like(mask, dtype=v.dtype).scatter(
-                    -1, cohort, v)
-            sol = sol._replace(prune=scatter(sol.prune),
-                               bandwidth=scatter(sol.bandwidth),
-                               per=scatter(sol.per))
+        if chan.interference is not None:
+            sol = SOLVER.solve_fleet(*clients[:5], m_round, mask, cap,
+                                     interference=chan.interference,
+                                     **solve_kw)
+        else:
+            gathered = cohort is not None and cohort.shape[-1] < mask.shape[-1]
+            if gathered:
+                clients = tuple(torch.take_along_dim(a, cohort, dim=-1)
+                                for a in clients)
+            *clients, solve_mask = clients
+            sol = _solve_cells_chunked(cfg.control_chunk, *clients, m_round,
+                                       solve_mask, cap, **solve_kw)
+            if gathered:
+                def scatter(v):
+                    return torch.zeros_like(mask, dtype=v.dtype).scatter(
+                        -1, cohort, v)
+                sol = sol._replace(prune=scatter(sol.prune),
+                                   bandwidth=scatter(sol.bandwidth),
+                                   per=scatter(sol.per))
 
+        i_psd = 0.0 if sol.interference_psd is None \
+            else sol.interference_psd[:, None]
         t_c = CF.training_latency(sol.prune, pop.num_samples,
                                   w.cycles_per_sample, pop.cpu_hz)
-        r_u = CF.uplink_rate(sol.bandwidth, pop.tx_power, h_up, n0)
+        r_u = CF.uplink_rate(sol.bandwidth, pop.tx_power, h_up, n0,
+                             interference_psd=i_psd)
         t_u = CF.upload_latency(sol.prune, w.model_bits, r_u)
         t_client = t_d + t_c + t_u
 
@@ -619,7 +750,7 @@ def _with_eval(metrics: dict, task: TASK.FleetTask, state: PyTree,
 
 def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
                          state: PyTree, pop: TOPO.ClientPopulation,
-                         data: PyTree):
+                         data: ClientData):
     """The model half of a sync round: consume a RoundControl and return
     the FedSGD update, the Theorem-1 accumulators and the metrics."""
 
@@ -638,6 +769,97 @@ def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
             metrics
 
     return apply_round
+
+
+# ---------------------------------------------------------------------------
+# Two-tier aggregation: an edge model per cell, a periodic cloud merge
+# ---------------------------------------------------------------------------
+
+def _cloud_view(edge: PyTree, acc_w: torch.Tensor,
+                k_cell: torch.Tensor) -> PyTree:
+    """The Eq.-(5) mean one tier up: each cell's edge model weighs in with
+    the weight mass it merged since the last cloud merge (``acc_w``), or
+    with its sample total where no cell merged anything.  With
+    ``cloud_period = 1`` this is the single-tier step."""
+    w = torch.where(torch.sum(acc_w) > 0, acc_w, k_cell)
+    return AGG.aggregate(edge, w, torch.ones_like(w))
+
+
+def _broadcast(cloud: PyTree, edge: PyTree) -> PyTree:
+    """The cloud model in every cell's edge slot."""
+    return pruning.tree_map(
+        lambda e, cl: cl.to(e.dtype).expand(e.shape).clone(), edge, cloud)
+
+
+def _make_two_tier_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
+                            state: PyTree, pop: TOPO.ClientPopulation,
+                            data: ClientData):
+    """The model half of a sync two-tier round: every cell's edge model
+    takes its own Eq.-(5)-weighted step from its own scheduled clients (a
+    loop over cells: one ranking of that edge model and one gradient call
+    each; on the cohort path over its m scheduled clients); on every
+    ``cloud_period``-th round the cloud merges the edges, broadcasts the
+    result and the round pays the backhaul.  Metrics evaluate the cloud
+    view.  The carry is (edge, merged weight since the last cloud merge,
+    q sum, rho sum, rounds done)."""
+    c, i = cfg.topology.shape
+    k_cell = torch.sum(pop.num_samples, dim=-1)
+    period = cfg.cloud_period
+
+    def apply_round(carry, ctl: RoundControl):
+        edge, acc_w, per_sum, prune_sum, r = carry
+        active, arrivals, agg_w = _round_activity(cfg, pop, ctl)
+        rho, sched_w = ctl.sol.prune, ctl.mask
+        flat = None
+        if ctl.cohort is not None:
+            rho, agg_w, sched_w = (torch.take_along_dim(a, ctl.cohort, dim=-1)
+                                   for a in (rho, agg_w, sched_w))
+            flat = torch.arange(c, device=rho.device)[:, None] * i \
+                + ctl.cohort
+        cells, w_sums, loss_sums, loss_ws = [], [], [], []
+        for cell in range(c):
+            theta = pruning.tree_map(lambda a: a[cell], edge)
+            batch = (data.block(cell * i, (cell + 1) * i) if flat is None
+                     else data.take(flat[cell]))
+            g, losses = _grads_fn(task, theta, cfg)(rho[cell], batch,
+                                                    agg_w[cell])
+            w_sums.append(torch.sum(agg_w[cell]))
+            cells.append(_sgd(theta, g, w_sums[-1], cfg.lr))
+            loss_sums.append(torch.sum(losses * sched_w[cell]))
+            loss_ws.append(torch.sum(sched_w[cell]))
+        edge2 = pruning.tree_map(lambda *xs: torch.stack(xs), *cells)
+        w_sums, loss_sums, loss_ws = (torch.stack(v) for v in
+                                      (w_sums, loss_sums, loss_ws))
+        mean_loss = torch.sum(loss_sums) / torch.clamp_min(
+            torch.sum(loss_ws), 1.0)
+
+        acc2 = acc_w + w_sums
+        cloud = _cloud_view(edge2, acc2, k_cell)
+        merge = r % period == period - 1
+        if merge:
+            edge2, acc2 = _broadcast(cloud, edge2), torch.zeros_like(acc2)
+        metrics, q_eff = _round_metrics(cfg, pop, ctl, active, arrivals,
+                                        mean_loss)
+        if merge:
+            metrics["round_latency"] = metrics["round_latency"] \
+                + cfg.wireless.backhaul_s
+        metrics = _with_eval(metrics, task, state, cloud)
+        return (edge2, acc2, per_sum + q_eff,
+                prune_sum + ctl.sol.prune * ctl.mask, r + 1), metrics
+
+    return apply_round
+
+
+def _edge_mean(edge: PyTree, acc_w: np.ndarray,
+               num_samples: np.ndarray) -> PyTree:
+    """Host-side cloud view of the final edges (numpy), as
+    ``_cloud_view``: merged-weight mass, else sample totals."""
+    acc_w = np.asarray(acc_w, dtype=np.float64)
+    if acc_w.sum() <= 0:
+        acc_w = np.sum(np.asarray(num_samples, dtype=np.float64), axis=-1)
+    w = acc_w / acc_w.sum()
+    return pruning.tree_map(
+        lambda a: np.tensordot(w.astype(a.dtype), a, axes=1), edge)
 
 
 # ---------------------------------------------------------------------------
@@ -714,31 +936,37 @@ def _start_state(ctl: RoundControl, now, version: int,
     return _map_cell_blocks(build, cfg.control_chunk, (cell_args, prev, coh))
 
 
+def _slot_groups(cfg: FleetConfig, head: int, tau: torch.Tensor):
+    """The buffer bucketed by ring slot (param version): (slot, indices
+    into the buffer) for each populated slot, ascending.  Finding them is
+    the event's one host sync."""
+    hist_len = cfg.async_config.history_len
+    slot = (head - torch.clamp(tau, 0, hist_len - 1)) % hist_len
+    counts = torch.bincount(slot, minlength=hist_len).tolist()
+    order = torch.argsort(slot, stable=True)
+    groups, at = [], 0
+    for s, count in enumerate(counts):
+        if count:
+            groups.append((s, order[at:at + count]))
+            at += count
+    return groups
+
+
 def _buffer_grads(task: TASK.FleetTask, cfg: FleetConfig, hist: PyTree,
                   head: int, tau: torch.Tensor, batch: PyTree,
                   rho: torch.Tensor, w_merge: torch.Tensor):
     """The buffer's weighted gradient sum, each update at its download
     version, and its per-client losses.
 
-    The clients are bucketed by ring slot (param version); each populated
-    slot, in ascending order, takes its own clients only: one ranking (the
-    fused path's ``tile_norms`` launch) and one gradient call, summed in
-    slot order.  Gathering the slot's clients keeps the work at K clients
-    an event (passing the whole buffer with zero weights outside the slot,
-    as the reference's static shapes force, costs K per populated slot).
-    Finding the populated slots is the event's one host sync."""
-    hist_len = cfg.async_config.history_len
-    slot = (head - torch.clamp(tau, 0, hist_len - 1)) % hist_len
-    counts = torch.bincount(slot, minlength=hist_len).tolist()
-    order = torch.argsort(slot, stable=True)
+    Each populated slot (``_slot_groups``), in ascending order, takes its
+    own clients only: one ranking (the fused path's ``tile_norms``
+    launch) and one gradient call, summed in slot order.  Gathering the
+    slot's clients keeps the work at K clients an event (passing the whole
+    buffer with zero weights outside the slot, as the reference's static
+    shapes force, costs K per populated slot)."""
     g_wsum = pruning.tree_map(lambda a: torch.zeros_like(a[0]), hist)
     losses = torch.zeros_like(w_merge)
-    at = 0
-    for s, count in enumerate(counts):
-        if not count:
-            continue
-        idx = order[at:at + count]
-        at += count
+    for s, idx in _slot_groups(cfg, head, tau):
         params_s = pruning.tree_map(lambda a: a[s], hist)
         g, l_s = _grads_fn(task, params_s, cfg)(
             rho[idx], {k: v[idx] for k, v in batch.items()}, w_merge[idx])
@@ -747,26 +975,69 @@ def _buffer_grads(task: TASK.FleetTask, cfg: FleetConfig, hist: PyTree,
     return g_wsum, losses
 
 
+def _buffer_cell_sums(task: TASK.FleetTask, cfg: FleetConfig, hist: PyTree,
+                      head: int, tau: torch.Tensor, batch: PyTree,
+                      rho: torch.Tensor, w_merge: torch.Tensor,
+                      onehot: torch.Tensor):
+    """The two-tier event's per-cell sums sum_k w_k g_k over the buffer,
+    one (C, ...) tensor per leaf, and its per-client losses.
+
+    Per-client gradients at each client's download version, as the
+    reference forms them: under ``kernel="fused"`` with the block masks
+    of that version's ranking (one ``tile_norms`` launch a populated
+    slot), under ``"reference"`` with ``cfg.mask_kind``.  Each slot's
+    weighted gradients go to their cells through the (C, K) one-hot
+    matrix ``onehot``, a product in a fixed order (no float atomics), and
+    the slots add up in ascending order."""
+    mask_kind = "block" if cfg.kernel != "reference" else cfg.mask_kind
+    sums = pruning.tree_map(
+        lambda a: a.new_zeros((onehot.shape[0],) + tuple(a.shape[1:])), hist)
+    losses = torch.zeros_like(w_merge)
+    for s, idx in _slot_groups(cfg, head, tau):
+        params_s = pruning.tree_map(lambda a: a[s], hist)
+        masks = _client_masks(task, params_s, mask_kind)(rho[idx])
+        l_s, g = FUSED.masked_client_grads(
+            task.loss, params_s, masks, {k: v[idx] for k, v in batch.items()})
+        to_cells = onehot[:, idx] * w_merge[idx]
+        sums = pruning.tree_map(
+            lambda acc, gg: acc + torch.tensordot(to_cells.to(gg.dtype), gg,
+                                                  dims=1), sums, g)
+        losses = losses.index_copy(0, idx, l_s.to(losses.dtype))
+    return sums, losses
+
+
 def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
-                     pop: TOPO.ClientPopulation, data: PyTree):
+                     pop: TOPO.ClientPopulation, data: ClientData):
     """One server event: fill the buffer with the K earliest arrivals,
     merge them (staleness-discounted) against the ring buffer, bump the
-    version, relaunch the merged clients with the control draw ``ctl``."""
+    version, relaunch the merged clients with the control draw ``ctl``.
+
+    Two-tier (``cloud_period >= 1``; the carry gains the edge models and
+    the merged weight since the last cloud merge): the buffered updates
+    step their home cells' edge models (per-cell Eq.-(5) weights); every
+    ``cloud_period``-th event the cloud merges the edges, pays the
+    backhaul and pushes its model into the ring buffer, which otherwise
+    keeps the current checkpoint, so clients only download cloud
+    models."""
     acfg = cfg.async_config
-    agg_latency = cfg.wireless.aggregation_latency_s
+    w = cfg.wireless
     n = cfg.topology.num_clients
+    c_cells, i_per_cell = cfg.topology.shape
     k_buf = acfg.cohort_buffer(n)
     hist_len = acfg.history_len
     k_all = pop.num_samples
     k_flat = k_all.reshape(-1)
+    k_cell = torch.sum(k_all, dim=-1)
     dtype = k_all.dtype
+    two_tier = cfg.cloud_period >= 1
+    cells = torch.arange(c_cells, device=k_all.device)
 
     def step(carry, ctl: RoundControl):
-        hist, head, version, now, st = carry
+        hist, head, version, now, st = carry[:5]
 
         # 1. the buffer fills with the K earliest pending arrivals
         sel, t_fill = SCHED.select_arrivals(st.ready, k_buf)
-        now2 = t_fill + agg_latency
+        now2 = t_fill + w.aggregation_latency_s
         coh = torch.zeros(n, dtype=dtype, device=k_all.device).index_fill(
             0, sel, 1.0).reshape(st.ready.shape)
 
@@ -782,11 +1053,39 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
             dtype=dtype)
 
         # 3. gradients at each client's download version, then the step
-        batch = {k: v[sel] for k, v in data.items()}
-        g_wsum, losses = _buffer_grads(task, cfg, hist, head, tau, batch,
-                                       gather(st.rho), w_merge)
+        batch = data.take(sel)
         params = pruning.tree_map(lambda a: a[head], hist)
-        new_params = _sgd(params, g_wsum, torch.sum(w_merge), cfg.lr)
+        tail = ()
+        if two_tier:
+            edge, acc_w = carry[5:]
+            onehot = (cells[:, None] == (sel // i_per_cell)[None, :]
+                      ).to(dtype)                                  # (C, K)
+            num, losses = _buffer_cell_sums(task, cfg, hist, head, tau,
+                                            batch, gather(st.rho), w_merge,
+                                            onehot)
+            den = torch.sum(onehot * w_merge, dim=-1)              # (C,)
+
+            def edge_step(e, g):
+                shape = (-1,) + (1,) * (g.ndim - 1)
+                d = torch.clamp_min(den, 1e-30).reshape(shape)
+                return torch.where((den > 0).reshape(shape),
+                                   (e - cfg.lr * g / d).to(e.dtype), e)
+
+            edge2 = pruning.tree_map(edge_step, edge, num)
+            acc2 = acc_w + den
+            cloud = _cloud_view(edge2, acc2, k_cell)
+            new_params, eval_params = params, cloud
+            if (version + 1) % cfg.cloud_period == 0:
+                edge2, acc2 = _broadcast(cloud, edge2), torch.zeros_like(acc2)
+                new_params = pruning.tree_map(lambda p, cl: cl.to(p.dtype),
+                                              params, cloud)
+                now2 = now2 + w.backhaul_s
+            tail = (edge2, acc2)
+        else:
+            g_wsum, losses = _buffer_grads(task, cfg, hist, head, tau, batch,
+                                           gather(st.rho), w_merge)
+            new_params = _sgd(params, g_wsum, torch.sum(w_merge), cfg.lr)
+            eval_params = new_params
         version2, head2 = version + 1, (head + 1) % hist_len
         hist2 = pruning.tree_map(
             lambda a, p: torch.cat([a[:head2], p[None], a[head2 + 1:]]),
@@ -816,14 +1115,14 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
             "staleness": torch.mean(tau.to(dtype)),
             "sim_time": now2,
         }
-        metrics = _with_eval(metrics, task, state, new_params)
+        metrics = _with_eval(metrics, task, state, eval_params)
 
         # 5. the merged clients download version2 and start again
         st2 = _start_state(ctl, now2, version2, st, coh, cfg)._replace(
             per_sum=st.per_sum + torch.where(coh > 0, q_eff, 1.0),
             prune_sum=st.prune_sum + torch.where(coh > 0, st.rho * st.sched,
                                                  0.0))
-        return (hist2, head2, version2, now2, st2), metrics
+        return (hist2, head2, version2, now2, st2) + tail, metrics
 
     return step
 
@@ -838,21 +1137,27 @@ class Simulation:
     (async) r; ``simulate(params)`` runs them all from ``params``;
     ``finalize`` turns the output into a ``FleetResult``.  A step is
     ``apply(carry, control(r))``: the control pass depends on the draws
-    alone, so it can be timed apart."""
+    alone, so it can be timed apart.  ``data`` holds the clients' batches
+    (cached or streamed)."""
 
     cfg: FleetConfig
     task: TASK.FleetTask
     params: PyTree
     task_state: PyTree
     population: TOPO.ClientPopulation
-    data: PyTree
+    data: ClientData
     draws: Any
     mode: str = "sync"
 
     def __post_init__(self):
+        self.two_tier = self.cfg.cloud_period >= 1
         self._control = _make_control_fn(self.cfg, self.population)
-        make = (_make_async_step if self.mode == "async"
-                else _make_apply_round_fn)
+        if self.mode == "async":
+            make = _make_async_step
+        elif self.two_tier:
+            make = _make_two_tier_round_fn
+        else:
+            make = _make_apply_round_fn
         self._apply = make(self.cfg, self.task, self.task_state,
                            self.population, self.data)
 
@@ -869,21 +1174,31 @@ class Simulation:
         return self._apply(carry, ctl)
 
     def init_carry(self, params: PyTree):
-        """Sync: (params, q sum, rho sum).  Async: the ring buffer with
-        ``params`` in slot 0, head, version, time and the fleet launched
-        at t = 0 with draw 0."""
+        """Sync: (params, q sum, rho sum); two-tier: (every cell's edge
+        model, merged weight, q sum, rho sum, rounds done).  Async: the
+        ring buffer with ``params`` in slot 0, head, version, time and the
+        fleet launched at t = 0 with draw 0, and two-tier the edge models
+        and merged weight."""
+        pathloss = self.population.pathloss
+        c = pathloss.shape[0]
+        tiers = ()
+        if self.two_tier:
+            tiers = (pruning.tree_map(
+                lambda p: p[None].expand((c,) + tuple(p.shape)).clone(),
+                params), pathloss.new_zeros((c,)))
         if self.mode == "sync":
-            zeros = torch.zeros_like(self.population.pathloss)
+            zeros = torch.zeros_like(pathloss)
+            if self.two_tier:
+                return tiers + (zeros, zeros, 0)
             return (params, zeros, zeros)
         hist_len = self.cfg.async_config.history_len
         hist = pruning.tree_map(
             lambda p: torch.cat([p[None], p.new_zeros(
                 (hist_len - 1,) + tuple(p.shape))]), params)
-        now = torch.zeros((), dtype=self.population.pathloss.dtype,
-                          device=self.population.pathloss.device)
+        now = pathloss.new_zeros(())
         ctl0 = self._control(self.draws.round(0, self.population))
         return (hist, 0, 0, now, _start_state(ctl0, now, 0, None, None,
-                                              self.cfg))
+                                              self.cfg)) + tiers
 
     def step(self, carry, r: int):
         return self.apply(carry, self.control(r))
@@ -899,44 +1214,51 @@ class Simulation:
 
     def finalize(self, carry, metrics) -> FleetResult:
         """Host-side FleetResult, with the Theorem-1 bound on the realized
-        (q, rho) averages."""
+        (q, rho) averages.  Two-tier ``params`` is the cloud view of the
+        final edge models (the last cloud merge where the run ended on
+        one)."""
         cfg = self.cfg
-        host = {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
         if self.mode == "async":
-            hist, head, _, _, st = carry
+            hist, head, _, _, st = carry[:5]
             params = pruning.tree_map(lambda a: a[head], hist)
             per_sum, prune_sum = st.per_sum, st.prune_sum
+            tiers = carry[5:]
+        elif self.two_tier:
+            *tiers, per_sum, prune_sum, _ = carry
         else:
             params, per_sum, prune_sum = carry
-        avg_per = per_sum.detach().cpu().numpy().reshape(-1) / cfg.rounds
-        avg_prune = prune_sum.detach().cpu().numpy().reshape(-1) / cfg.rounds
+        if self.two_tier:
+            edge, acc_w = tiers
+            params = _edge_mean(pruning.tree_map(host, edge), host(acc_w),
+                                host(self.population.num_samples))
+        else:
+            params = pruning.tree_map(host, params)
+        out = {k: host(v) for k, v in metrics.items()}
+        avg_per = host(per_sum).reshape(-1) / cfg.rounds
+        avg_prune = host(prune_sum).reshape(-1) / cfg.rounds
         bound = ConvergenceBound(
-            cfg.smoothness,
-            self.population.num_samples.detach().cpu().numpy().reshape(-1))
-        latencies = host["round_latency"]
+            cfg.smoothness, host(self.population.num_samples).reshape(-1))
+        latencies = out["round_latency"]
         return FleetResult(
-            losses=host["loss"],
-            accuracy=host["accuracy"],
+            losses=out["loss"],
+            accuracy=out["accuracy"],
             latencies=latencies,
-            deadlines=host["deadline"],
-            mean_prune=host["mean_prune"],
-            mean_per=host["mean_per"],
-            participants=host["participants"],
-            bandwidth_util=host["bandwidth_util"],
-            learning_cost=host["learning_cost"],
+            deadlines=out["deadline"],
+            mean_prune=out["mean_prune"],
+            mean_per=out["mean_per"],
+            participants=out["participants"],
+            bandwidth_util=out["bandwidth_util"],
+            learning_cost=out["learning_cost"],
             bound_final=float(bound.bound(cfg.rounds, avg_per, avg_prune)),
-            params=pruning.tree_map(lambda v: v.detach().cpu().numpy(),
-                                    params),
-            wall_clock=host.get("sim_time", np.cumsum(latencies)),
-            staleness=host.get("staleness", np.zeros_like(latencies)),
+            params=params,
+            wall_clock=out.get("sim_time", np.cumsum(latencies)),
+            staleness=out.get("staleness", np.zeros_like(latencies)),
             mode=self.mode,
         )
-
-
-def _batch_bytes(task: TASK.FleetTask, num_clients: int,
-                 dtype: torch.dtype) -> int:
-    x = num_clients * task.local_batch * task.feature_dim
-    return x * torch.finfo(dtype).bits // 8 + num_clients * task.local_batch * 8
 
 
 def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
@@ -951,12 +1273,15 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
       device: where everything runs; ``None`` means ``"cuda"``.
       dtype: the float dtype of the run (the reference's x64 flag).
       draws: the draw source (default ``GeneratorDraws(cfg.seed, device)``,
-        with Gumbel draws when the schedule is partial).  Injected draws
-        must carry ``gumbel`` under a partial schedule, and one draw more
-        than ``cfg.rounds`` in async mode.
-      start: optional ``SimStart`` (initial params, task state, cached
-        client batches); by default they are drawn from the task with
-        generators seeded from ``cfg.seed``.
+        with Gumbel draws when the schedule is partial and the hex draws
+        under ``HexInterference``).  Injected draws must carry ``gumbel``
+        under a partial schedule, a hex geometry's fields
+        (``InjectedDraws.check_geometry``), and one draw more than
+        ``cfg.rounds`` in async mode.
+      start: optional ``SimStart`` (initial params, task state and cached
+        client batches, which the run then uses whatever ``cache_data``
+        says, or None); by default they come from the task, with
+        generators and a data seed derived from ``cfg.seed``.
 
     Injected population, round draws and start tensors must lie on the
     run's device; anything else raises ``ValueError``.
@@ -964,10 +1289,12 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
     _check_supported(cfg, mode)
     dev = resolve_device(device)
     task = resolve_task(cfg)
+    geo = resolve_geometry(cfg)
     topo = cfg.topology
     partial = SCHED.draws_participation(cfg.schedule, topo.clients_per_cell)
     if draws is None:
-        draws = GeneratorDraws(cfg.seed, dev, participation=partial)
+        draws = GeneratorDraws(cfg.seed, dev, participation=partial,
+                               geometry=geo)
     pop = draws.population(topo, cfg.wireless.tx_power_ue_w, dtype)
     _check_on_device("the population's tensors", pop, dev)
     if isinstance(draws, InjectedDraws):
@@ -975,22 +1302,24 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
                          dev)
         if partial:
             draws.check_participation()
+        draws.check_geometry(geo, pop)
 
+    batches = None
     if start is None:
         seeds = GeneratorDraws(cfg.seed, dev)
-        state = task.build(seeds.generator("task"), dtype, dev)
+        state = task.build(seeds.generator("task"), dtype, dev,
+                           num_clients=topo.num_clients)
         params = task.init_params(seeds.generator("init"), dtype, dev)
-        if cfg.cache_data is None and _batch_bytes(
-                task, topo.num_clients, dtype) > _CACHE_LIMIT_BYTES:
-            raise NotImplementedError(
-                "client data above the 512 MB cache limit needs the streaming "
-                f"data path (6c) — {_ROADMAP_REST}")
-        data = task.client_batch(state, seeds.generator("data"),
-                                 topo.num_clients)
     else:
         _check_on_device("the start's params, task state and batches",
                          tuple(start), dev)
-        params, state, data = start
+        params, state, batches = start
+    seed = _seed(cfg.seed, "data")
+    if batches is None:
+        data = ClientData.draw(task, state, seed, topo.num_clients, dev,
+                               cache=_cache_data(cfg, task, dtype))
+    else:
+        data = ClientData(task, state, seed, dev, cached=batches)
     return Simulation(cfg=cfg, task=task, params=params, task_state=state,
                       population=pop, data=data, draws=draws, mode=mode)
 

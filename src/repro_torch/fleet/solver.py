@@ -1,15 +1,24 @@
-"""Algorithm 1 for every cell at once: the batched trade-off solver.
+"""Algorithm 1 for every cell at once: the batched trade-off solver, with
+the damped inter-cell interference fixed point.
 
-The port of ``repro.fleet.solver`` without the interference fixed point.
-The reference vmaps a per-cell ``lax.while_loop``; under vmap JAX steps
-the whole batch while any lane is live and freezes each lane whose own
-condition is false, whether it converged or hit ``max_iters``.  Here the
+The port of ``repro.fleet.solver`` (its ``diagnostics`` residual
+trajectory comes with the telemetry module).  The reference vmaps a
+per-cell ``lax.while_loop``; under vmap JAX steps the whole batch while
+any lane is live and freezes each lane whose own condition is false,
+whether it converged or hit ``max_iters``.  Here the
 batch dimension is written out: the loop runs while
 ``(~done & (iters < max_iters)).any()`` and every frozen lane keeps its
 old state.  Each alternation is the Prop.-1 pruning vertex followed by
 the Eq.-(21) bandwidth inversion (``core.closed_form``); the optional
 deadline cap re-derives the Eq.-(16) rates at the capped deadline and
 sidelines what no longer fits the band.
+
+With an ``InterferenceGraph`` (``fleet.topology``) the cells couple: every
+fixed-point iteration solves all cells at effective noise N0 + I_c,
+recomputes I from the allocation (``topology.interference_psd``) and
+damps, I <- I + d (F(I) - I), from I = 0, freezing when the iterate moves
+by at most ``fp_rtol (N0 + max I)`` or after ``fp_iters`` iterations.
+Like the alternations, each iteration's freeze test is a host sync.
 """
 
 from __future__ import annotations
@@ -20,23 +29,30 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import closed_form as CF
+from repro_torch.fleet import topology as TOPO
 
-__all__ = ["SolverConfig", "CellSolution", "solve_fleet"]
+__all__ = ["SolverConfig", "CellSolution", "solve_cell", "solve_fleet"]
 
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Static knobs of the alternating solver (the interference
-    fixed point's ``fp_*`` knobs come with item 6d of ROADMAP.md)."""
+    """Static knobs of the alternating solver; ``fp_*`` govern the
+    interference fixed point (``fp_rtol = 0`` always runs ``fp_iters``)."""
 
     max_iters: int = 16       # Algorithm-1 alternations (cap)
     bw_iters: int = 12        # Eq.-(21) Newton steps
     rtol: float = 1e-8        # freeze threshold on the inner cost; clamped
                               # to a few ulp of the compute dtype
+    fp_iters: int = 8         # interference fixed-point cap
+    fp_damping: float = 0.5   # damping d of the interference iterate
+    fp_rtol: float = 1e-3     # freeze tolerance, relative to N0 + max I
 
 
 class CellSolution(NamedTuple):
-    """Per-cell solver output: (C, I) per-client fields, (C,) per cell."""
+    """Per-cell solver output: (C, I) per-client fields, (C,) per cell.
+    The ``interference_psd`` / ``fp_*`` fields are set by coupled solves
+    only: the converged per-cell PSD (W/Hz) the solution was solved at,
+    the fixed-point iterations and the last iterate movement (W/Hz)."""
 
     prune: torch.Tensor        # rho_i*
     bandwidth: torch.Tensor    # B_i*, Hz
@@ -45,6 +61,9 @@ class CellSolution(NamedTuple):
     inner_cost: torch.Tensor   # (14a)
     iterations: torch.Tensor   # alternations until freeze (int32)
     feasible: torch.Tensor     # finite B and sum B_i <= B
+    interference_psd: Optional[torch.Tensor] = None   # (C,)
+    fp_iterations: Optional[torch.Tensor] = None      # scalar int32
+    fp_residual: Optional[torch.Tensor] = None        # scalar
 
 
 def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
@@ -54,14 +73,82 @@ def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
                 deadline_cap: Optional[torch.Tensor] = None, *,
                 bandwidth_hz: float, noise_psd: float, waterfall_m0: float,
                 model_bits: float, cycles_per_sample: float, weight: float,
-                solver: SolverConfig = SolverConfig()) -> CellSolution:
+                solver: SolverConfig = SolverConfig(),
+                interference: Optional[TOPO.InterferenceGraph] = None
+                ) -> CellSolution:
     """Algorithm 1 over every cell of a (C, I) fleet.
 
     Array args are (C, I) except ``m`` (1/samples) and ``deadline_cap``
-    (seconds), which are (C,).  Gains are linear, bandwidth Hz, noise W/Hz,
-    payload bits, power W, ``weight`` the trade-off lambda.  Masked-out
-    clients get rho = 0 and B = 0 and drop out of the vertex walk and cost.
+    (seconds), which are (C,).  Gains are linear, bandwidth Hz, noise W/Hz
+    (a float, or a (C,) tensor of per-cell effective noise), payload bits,
+    power W, ``weight`` the trade-off lambda.  Masked-out clients get rho
+    = 0 and B = 0 and drop out of the vertex walk and cost.  With
+    ``interference`` the cells solve inside the damped fixed point (see
+    the module docstring).
     """
+    if mask is None:
+        mask = torch.ones_like(h_up)
+    kw = dict(bandwidth_hz=bandwidth_hz, waterfall_m0=waterfall_m0,
+              model_bits=model_bits, cycles_per_sample=cycles_per_sample,
+              weight=weight, solver=solver)
+    args = (h_up, num_samples, cpu_hz, tx_power, max_prune, m, mask,
+            deadline_cap)
+    if interference is None:
+        return _solve(*args, noise=noise_psd, **kw)
+
+    i_cur = torch.zeros(h_up.shape[:-1], dtype=h_up.dtype,
+                        device=h_up.device)
+    i_solved, it, err = i_cur, 0, torch.full((), float("inf"),
+                                             dtype=h_up.dtype,
+                                             device=h_up.device)
+    sol = None
+    while it < solver.fp_iters:
+        sol = _solve(*args, noise=(noise_psd + i_cur)[:, None], **kw)
+        i_raw = TOPO.interference_psd(sol.bandwidth, tx_power, interference,
+                                      bandwidth_hz)
+        i_new = i_cur + solver.fp_damping * (i_raw - i_cur)
+        err = torch.amax(torch.abs(i_new - i_cur))
+        done = bool(err <= solver.fp_rtol * (noise_psd + torch.amax(i_cur)))
+        i_solved, i_cur, it = i_cur, i_new, it + 1
+        if done:
+            break
+    if sol is None:   # fp_iters = 0: the reference's zero solution
+        sol = _solve(*args, noise=noise_psd, **kw)
+        sol = CellSolution(*(torch.zeros_like(v) for v in sol[:7]))
+    return sol._replace(
+        interference_psd=i_solved,
+        fp_iterations=torch.tensor(it, dtype=torch.int32, device=h_up.device),
+        fp_residual=err)
+
+
+def solve_cell(h_up: torch.Tensor, num_samples: torch.Tensor,
+               cpu_hz: torch.Tensor, tx_power: torch.Tensor,
+               max_prune: torch.Tensor, m, mask=None, deadline_cap=None, *,
+               noise_psd, solver: SolverConfig = SolverConfig(),
+               **kw) -> CellSolution:
+    """Algorithm 1 for one cell of I clients: the fleet solve on a
+    one-cell fleet, its cell axis taken away again.  Array inputs are
+    (I,); ``m`` and ``deadline_cap`` are scalars; ``noise_psd`` may be a
+    scalar tensor (N0 + I when the cell sits inside a fixed point)."""
+    def row(v):
+        return None if v is None else torch.as_tensor(
+            v, dtype=h_up.dtype, device=h_up.device).reshape(1, -1)
+
+    if isinstance(noise_psd, torch.Tensor):
+        noise_psd = noise_psd.reshape(1, 1)
+    sol = _solve(*(row(v) for v in (h_up, num_samples, cpu_hz, tx_power,
+                                    max_prune)),
+                 row(m)[0], row(mask),
+                 None if deadline_cap is None else row(deadline_cap)[0],
+                 noise=noise_psd, solver=solver, **kw)
+    return CellSolution(*(v[0] for v in sol[:7]))
+
+
+def _solve(h_up, num_samples, cpu_hz, tx_power, max_prune, m, mask,
+           deadline_cap, *, noise, bandwidth_hz, waterfall_m0, model_bits,
+           cycles_per_sample, weight, solver) -> CellSolution:
+    """The alternations at noise PSD ``noise`` (a float or (C, 1))."""
+    noise_psd = noise
     lam = weight
     k = num_samples.to(h_up.dtype)
     if mask is None:

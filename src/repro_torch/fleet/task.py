@@ -3,17 +3,22 @@
 The port of ``repro.fleet.task`` for the synthetic MLP classifier
 (``SyntheticMLPTask``, the fleet round's task) and the model side of
 ``TransformerTask`` (config, parameters and tile grid, which the serving
-path needs; its training methods are not ported yet).  Randomness comes
-from explicit ``torch.Generator``s handed in by the engine's draw source;
-every
-client's fixed local batch is drawn once, for the whole fleet, at build
-time (the engine's data cache).
+path needs; its training methods are not ported yet).  Task constants
+come from explicit ``torch.Generator``s handed in by the engine.
+
+Client data is counter-based: client i's fixed local batch is a pure
+function of (data seed, i) and the task state, drawn by plain tensor ops
+(integer mixing of seed, client and element into 32-bit words, then
+Box-Muller normals and inverse-CDF labels), vectorized over any index
+set.  So the engine can cache every batch once or draw any subset again,
+and both give the same bits.  Every integer product stays below 2^63.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -51,10 +56,15 @@ class FleetTask(abc.ABC):
 
     name: str = "task"
 
+    # Whether the engine's automatic data cache may hold every client's
+    # batch (below its memory limit); False makes it draw them per use.
+    cache_batches: bool = True
+
     @abc.abstractmethod
     def build(self, generator: torch.Generator, dtype: torch.dtype,
-              device) -> PyTree:
-        """Materialize task constants (templates, test sets)."""
+              device, num_clients: int = 0) -> PyTree:
+        """Materialize task constants (templates, test sets, and any
+        per-client constants of a ``num_clients`` fleet)."""
 
     @abc.abstractmethod
     def init_params(self, generator: torch.Generator, dtype: torch.dtype,
@@ -62,9 +72,11 @@ class FleetTask(abc.ABC):
         """Initialize the dense global model."""
 
     @abc.abstractmethod
-    def client_batch(self, state: PyTree, generator: torch.Generator,
-                     num_clients: int) -> PyTree:
-        """Every client's fixed local batch, leading dim ``num_clients``."""
+    def client_batch(self, state: PyTree, seed: int,
+                     clients: torch.Tensor) -> PyTree:
+        """The fixed local batches of the clients ``clients`` (int64 flat
+        indices), leading dim ``len(clients)``: a pure function of
+        (``seed``, client, ``state``)."""
 
     @abc.abstractmethod
     def loss(self, params: PyTree, batch: PyTree) -> torch.Tensor:
@@ -90,10 +102,64 @@ class FleetTask(abc.ABC):
         """Weighted Eq.-(5) gradient sum + per-client losses for a chunk."""
 
 
+_M32 = 0xFFFFFFFF
+# stream ids of the counter-based draws (one per purpose)
+_STREAM_NORMAL_R, _STREAM_NORMAL_T, _STREAM_LABEL = 1, 2, 3
+
+
+def _mix32(x):
+    """A 32-bit integer hash of ``x`` in [0, 2^32) (a Python int or an
+    int64 tensor): xor-shifts and two multiplications by odd constants
+    below 2^31, so no product reaches 2^63 and the CPU and the card agree
+    bit for bit."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def client_words(seed: int, stream: int, clients: torch.Tensor,
+                 count: int) -> torch.Tensor:
+    """(len(clients), count) int64 words in [0, 2^32): word e of client c
+    in ``stream`` is a hash of (seed, stream, c, e) alone."""
+    key = _mix32(_mix32(seed & _M32) ^ ((seed >> 32) & _M32))
+    key = _mix32(key ^ stream)
+    c = _mix32((clients.to(torch.int64) & _M32) ^ key)
+    e = torch.arange(count, dtype=torch.int64, device=clients.device)
+    e = _mix32((e + _mix32(key ^ 0x5BD1E995)) & _M32)
+    return _mix32(c[:, None] ^ e[None, :])
+
+
+def _uniform(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """U(0, 1) from 32-bit words: the top 23 bits plus a half, exact in
+    float32 and float64."""
+    return ((words >> 9).to(dtype) + 0.5) * (2.0 ** -23)
+
+
+def client_normals(seed: int, clients: torch.Tensor, count: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """(len(clients), count) standard normals by Box-Muller, pair j from
+    words j of two streams."""
+    pairs = -(-count // 2)
+    u_r = _uniform(client_words(seed, _STREAM_NORMAL_R, clients, pairs), dtype)
+    u_t = _uniform(client_words(seed, _STREAM_NORMAL_T, clients, pairs), dtype)
+    r = torch.sqrt(-2.0 * torch.log(u_r))
+    theta = (2.0 * math.pi) * u_t
+    return torch.cat([r * torch.cos(theta), r * torch.sin(theta)],
+                     dim=-1)[:, :count]
+
+
 @dataclasses.dataclass(frozen=True)
 class SyntheticMLPTask(FleetTask):
     """Per-class Gaussian-template classification on a small MLP (the
-    engine's default task).  Same fields and defaults as the reference."""
+    engine's default task).  Same fields and defaults as the reference.
+
+    ``dirichlet_alpha`` (None = IID labels) gives each client a fixed
+    class distribution p_i ~ Dirichlet(alpha 1), drawn at ``build`` and
+    kept as its cumulative table ``state["label_cdf"]`` (n, classes);
+    the client's labels are inverse-CDF draws from it.
+    """
 
     feature_dim: int = 32
     hidden: tuple[int, ...] = (16,)
@@ -107,12 +173,11 @@ class SyntheticMLPTask(FleetTask):
     name: str = "mlp"
 
     def __post_init__(self):
-        if self.dirichlet_alpha is not None:
-            raise NotImplementedError(
-                "Dirichlet non-IID client data is not ported yet: "
-                "ROADMAP.md Queue A, item 6c")
+        if self.dirichlet_alpha is not None and not self.dirichlet_alpha > 0:
+            raise ValueError(f"dirichlet_alpha must be > 0, got "
+                             f"{self.dirichlet_alpha}")
 
-    def build(self, generator, dtype, device):
+    def build(self, generator, dtype, device, num_clients=0):
         templates = torch.randn((self.num_classes, self.feature_dim),
                                 generator=generator, dtype=dtype,
                                 device=device)
@@ -121,22 +186,37 @@ class SyntheticMLPTask(FleetTask):
         x_test = templates[y_test] + self.data_noise * torch.randn(
             (self.test_samples, self.feature_dim), generator=generator,
             dtype=dtype, device=device)
-        return {"templates": templates, "x_test": x_test, "y_test": y_test}
+        state = {"templates": templates, "x_test": x_test, "y_test": y_test}
+        if self.dirichlet_alpha is not None and num_clients:
+            # float64 gammas: a small alpha underflows float32 to 0
+            gam = torch._standard_gamma(
+                torch.full((num_clients, self.num_classes),
+                           float(self.dirichlet_alpha), dtype=torch.float64,
+                           device=device), generator=generator)
+            p = gam / torch.sum(gam, dim=-1, keepdim=True)
+            state["label_cdf"] = torch.cumsum(p, dim=-1).to(dtype)
+        return state
 
     def init_params(self, generator, dtype, device):
         return mlp.init_mlp_classifier(generator, self.feature_dim,
                                        self.hidden, self.num_classes,
                                        dtype=dtype, device=device)
 
-    def client_batch(self, state, generator, num_clients):
+    def client_batch(self, state, seed, clients):
         templates = state["templates"]
-        y = torch.randint(0, templates.shape[0],
-                          (num_clients, self.local_batch),
-                          generator=generator, device=templates.device)
-        x = templates[y] + self.data_noise * torch.randn(
-            (num_clients, self.local_batch, templates.shape[1]),
-            generator=generator, dtype=templates.dtype,
-            device=templates.device)
+        n, b = clients.shape[0], self.local_batch
+        words = client_words(seed, _STREAM_LABEL, clients, b)
+        if "label_cdf" in state:
+            cdf = state["label_cdf"][clients]
+            u = _uniform(words, cdf.dtype)
+            y = torch.clamp_max(torch.searchsorted(cdf, u, right=True),
+                                self.num_classes - 1)
+        else:
+            y = (words * self.num_classes) >> 32
+        z = client_normals(seed, clients, b * self.feature_dim,
+                           templates.dtype)
+        x = templates[y] + self.data_noise * z.reshape(n, b,
+                                                       self.feature_dim)
         return {"x": x, "y": y}
 
     def loss(self, params, batch):

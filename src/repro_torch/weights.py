@@ -10,14 +10,15 @@ per-round draws.  Integer arrays (labels) become int64; float arrays take
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.fleet.engine import RoundDraws, SimStart
-from repro_torch.fleet.topology import ClientPopulation
+from repro_torch.fleet.topology import (POPULATION_ARRAYS, ClientPopulation,
+                                        HexState)
 from repro_torch.serve.export import PrunedBundle
 
 __all__ = ["tensor", "tree_from_numpy", "population_from_numpy",
@@ -49,30 +50,47 @@ def tree_from_numpy(tree, dtype: torch.dtype = torch.float32,
     return tensor(tree, dtype, device)
 
 
+def _field(obj: Any, name: str):
+    if isinstance(obj, Mapping):
+        return obj.get(name)
+    return getattr(obj, name, None)
+
+
 def population_from_numpy(pop: Any, dtype: torch.dtype = torch.float32,
                           device=None) -> ClientPopulation:
     """A population with the ``ClientPopulation`` fields (a mapping or an
-    object with those attributes, e.g. the reference's NamedTuple)."""
-    def field(name):
-        return pop[name] if isinstance(pop, Mapping) else getattr(pop, name)
-    return ClientPopulation(*(tensor(field(f), dtype, device)
-                              for f in ClientPopulation._fields))
+    object with those attributes, e.g. the reference's NamedTuple); its
+    ``geometry``, where present and not None, has the ``HexState``
+    fields (``nbr_idx`` becomes int64)."""
+    geo = _field(pop, "geometry")
+    if geo is not None:
+        geo = HexState(*(tensor(_field(geo, f), dtype, device)
+                         for f in HexState._fields))
+    return ClientPopulation(*(tensor(_field(pop, f), dtype, device)
+                              for f in POPULATION_ARRAYS), geometry=geo)
 
 
 def round_draws_from_numpy(h_up, h_down, u_strag, u_arr, gumbel=None,
                            dtype: torch.dtype = torch.float32,
-                           device=None) -> RoundDraws:
-    """One draw's gains and uniforms, and the Gumbel scores a partial
-    schedule ranks (``None`` for a full one) -> ``RoundDraws``."""
-    return RoundDraws(*(None if a is None else tensor(a, dtype, device)
-                        for a in (h_up, h_down, u_strag, u_arr, gumbel)))
+                           device=None, **hex_draws) -> RoundDraws:
+    """One draw's gains and uniforms, the Gumbel scores a partial schedule
+    ranks (``None`` for a full one) and, by keyword, a hex geometry's
+    draws (``ray_up``, ``ray_down``, ``jitter``, ``ray_handover``,
+    ``ray_cross``) -> ``RoundDraws``."""
+    return RoundDraws(
+        *(None if a is None else tensor(a, dtype, device)
+          for a in (h_up, h_down, u_strag, u_arr, gumbel)),
+        **{k: None if a is None else tensor(a, dtype, device)
+           for k, a in hex_draws.items()})
 
 
-def start_from_numpy(params: Mapping, task_state: Mapping, batches: Mapping,
+def start_from_numpy(params: Mapping, task_state: Mapping,
+                     batches: Optional[Mapping] = None,
                      dtype: torch.dtype = torch.float32,
                      device=None) -> SimStart:
-    """The model and data side of a run -> ``SimStart``."""
-    return SimStart(*(tree_from_numpy(t, dtype, device)
+    """The model and data side of a run -> ``SimStart`` (``batches=None``:
+    the run draws them from the task state)."""
+    return SimStart(*(None if t is None else tree_from_numpy(t, dtype, device)
                       for t in (params, task_state, batches)))
 
 

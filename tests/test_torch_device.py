@@ -28,7 +28,7 @@ def _numpy_run(seed=0):
     rng = np.random.default_rng(seed)
     shape = TOPOLOGY
     pop = {f: rng.uniform(0.1, 1.0, shape)
-           for f in TTOPO.ClientPopulation._fields}
+           for f in TTOPO.POPULATION_ARRAYS}
     draws = [tuple(rng.uniform(0.0, 1.0, shape) for _ in range(4))
              for _ in range(CFG.rounds)]
     d, h, k = TASK.feature_dim, TASK.hidden[0], TASK.num_classes

@@ -6,17 +6,20 @@ fleets, see ``CASES``) on a ragged MLP
 (32 -> 12 -> 6 -> 5, block 8) under ``jax.enable_x64(True)``: the fused
 kernel; the reference kernel with magnitude and with block masks; uniform
 and weighted partial participation on the cohort path; a ragged
-``control_chunk``.  Its params, population, task state and cached client
-batches are carried across with ``repro_torch.weights``; its per-round
-draws are rebuilt with the engine's own key splits (round key -> fade /
-participation / straggler / arrival keys; fading through
-``topology.sample_fading``, the schedule's scores through
-``jax.random.gumbel``) and injected.  Every round's control (masks,
-cohorts and packet draws exactly), the trajectories, the final params and
-the Theorem-1 bound must then agree at 1e-5 relative: both sides run
-float64 through the same algorithm, so what is left is rounding (the
-absolute floors below cover exact zeros and ulp cancellations in
-dimensionless fields).
+``control_chunk``; hex cells with reuse 1, mobility and handover (the
+solver's interference fixed point at ``fp_rtol = 0``); two-tier
+aggregation; Dirichlet labels.  Its params, population (with its hex
+state), task state and cached client batches are carried across with
+``repro_torch.weights``; its per-round draws are rebuilt with the
+engine's own key splits (round key -> fade / participation / straggler /
+arrival keys; fading through ``topology.sample_fading``, the schedule's
+scores through ``jax.random.gumbel``, the hex draws through the fade
+key's splits and ``fold_in`` salts) and injected.  Every round's control
+(masks, cohorts and packet draws exactly), the trajectories, the final
+params and the Theorem-1 bound must then agree at 1e-5 relative: both
+sides run float64 through the same algorithm, so what is left is
+rounding (the absolute floors below cover exact zeros and ulp
+cancellations in dimensionless fields).
 """
 
 import dataclasses
@@ -30,11 +33,13 @@ import jax
 
 from repro.fleet import engine as JENG
 from repro.fleet import scheduler as JSCHED
+from repro.fleet import solver as JSOL
 from repro.fleet import task as JTASK
 from repro.fleet import topology as JTOPO
 from repro_torch import weights
 from repro_torch.fleet import engine as TENG
 from repro_torch.fleet import scheduler as TSCHED
+from repro_torch.fleet import solver as TSOL
 from repro_torch.fleet import task as TTASK
 from repro_torch.fleet import topology as TTOPO
 
@@ -42,6 +47,8 @@ RTOL = 1e-5
 TASK_KW = dict(feature_dim=32, hidden=(12, 6), num_classes=5,
                test_samples=64, prune_block=8)
 UNIFORM = dict(participation="uniform", participants_per_cell=2)
+# reuse 1 on 3 cells: every cell co-channel with the other two
+HEX = dict(reuse=1, max_neighbors=2, mobility_m=25.0, handover=True)
 # (schedule, topology, FleetConfig overrides): full participation;
 # stragglers plus a binding round deadline (the solver's cap branch); 3
 # cells in chunks of 2 (the chunked gradient sum with its exact-sized
@@ -62,32 +69,82 @@ CASES = {
                         dict(kernel="reference")),
     "control_chunk_ragged": (dict(UNIFORM, straggler_prob=0.2), (3, 5),
                              dict(control_chunk=2, cell_chunk=2)),
+    "hex_mobility_handover": ({}, (3, 4), dict(geometry=HEX, fp_rtol=0.0)),
+    "two_tier": ({}, (3, 4), dict(cloud_period=2)),
+    "dirichlet": ({}, (2, 4), dict(dirichlet_alpha=0.3)),
 }
 
 
 def _configs(schedule, topology=(2, 4), extra=None, rounds=3):
-    common = dict(dict(kernel="fused", rounds=rounds, lr=0.05),
-                  **(extra or {}))
+    """The JAX and the port's FleetConfig.  ``extra`` may hold ``geometry``
+    (a dict of HexInterference fields), ``fp_rtol`` (the solver's) and
+    ``dirichlet_alpha`` (the task's) besides FleetConfig fields."""
+    extra = dict(extra or {})
+    hexkw = extra.pop("geometry", None)
+    solver = {"fp_rtol": extra.pop("fp_rtol")} if "fp_rtol" in extra else {}
+    task_kw = dict(TASK_KW, dirichlet_alpha=extra.pop("dirichlet_alpha",
+                                                      None))
+    common = dict(dict(kernel="fused", rounds=rounds, lr=0.05), **extra)
     jcfg = JENG.FleetConfig(
-        task=JTASK.SyntheticMLPTask(**TASK_KW),
+        task=JTASK.SyntheticMLPTask(**task_kw),
         topology=JTOPO.FleetTopology(*topology),
-        schedule=JSCHED.ScheduleConfig(**schedule), **common)
+        schedule=JSCHED.ScheduleConfig(**schedule),
+        geometry=None if hexkw is None else JTOPO.HexInterference(**hexkw),
+        solver=JSOL.SolverConfig(**solver), **common)
     tcfg = TENG.FleetConfig(
-        task=TTASK.SyntheticMLPTask(**TASK_KW),
+        task=TTASK.SyntheticMLPTask(**task_kw),
         topology=TTOPO.FleetTopology(*topology),
-        schedule=TSCHED.ScheduleConfig(**schedule), **common)
+        schedule=TSCHED.ScheduleConfig(**schedule),
+        geometry=None if hexkw is None else TTOPO.HexInterference(**hexkw),
+        solver=TSOL.SolverConfig(**solver), **common)
     return jcfg, tcfg
 
 
-def _draws(rkey, pop, partial):
-    """One round key's draws, split as the engine splits it."""
+def hex_round_draws(k_fade, pop, geo):
+    """The hex geometry's round draws (``RoundDraws`` fields from
+    ``ray_up`` on), rebuilt from the fade key as ``round_channel`` splits
+    and salts it; {} for an orthogonal geometry."""
+    if not isinstance(geo, JTOPO.HexInterference):
+        return {}
+    shape = pop.pathloss.shape
+    k_up, k_down = jax.random.split(k_fade)
+    out = dict(ray_up=jax.random.exponential(k_up, shape),
+               ray_down=jax.random.exponential(k_down, shape))
+    state = pop.geometry
+    if geo.mobility_m > 0.0:
+        out["jitter"] = jax.random.normal(
+            jax.random.fold_in(k_fade, JTOPO._SALT_MOBILITY), shape + (2,))
+    if state is not None:
+        if geo.handover:
+            out["ray_handover"] = jax.random.exponential(
+                jax.random.fold_in(k_up, JTOPO._SALT_HANDOVER),
+                state.cand_gain.shape)
+        out["ray_cross"] = jax.random.exponential(
+            jax.random.fold_in(k_fade, JTOPO._SALT_CROSS),
+            state.cross_gain.shape)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _draws(rkey, pop, partial, geo=None):
+    """One round key's draws, split as the engine splits it: the
+    positional ``RoundDraws`` fields, then the hex fields by name."""
     k_fade, k_part, k_strag, k_arr = jax.random.split(rkey, 4)
     shape = pop.pathloss.shape
     h_up, h_down = JTOPO.sample_fading(k_fade, pop.pathloss)
     gumbel = jax.random.gumbel(k_part, shape) if partial else None
     return tuple(None if a is None else np.asarray(a) for a in (
         h_up, h_down, jax.random.uniform(k_strag, shape),
-        jax.random.uniform(k_arr, shape), gumbel))
+        jax.random.uniform(k_arr, shape), gumbel)) \
+        + (hex_round_draws(k_fade, pop, geo),)
+
+
+def population_numpy(pop):
+    """The reference's population as numpy, its hex state included."""
+    out = {f: np.asarray(getattr(pop, f)) for f in TTOPO.POPULATION_ARRAYS}
+    out["geometry"] = None if pop.geometry is None else \
+        {f: np.asarray(getattr(pop.geometry, f))
+         for f in TTOPO.HexState._fields}
+    return out
 
 
 def _reference(jcfg, mode="sync"):
@@ -103,11 +160,11 @@ def _reference(jcfg, mode="sync"):
         partial = JSCHED.cohort_size(jcfg.schedule, pop.pathloss.shape[-1]) \
             < pop.pathloss.shape[-1]
         used = keys[:jcfg.rounds] if mode == "sync" else keys
-        draws = [_draws(rkey, pop, partial) for rkey in used]
+        geo = JENG.resolve_geometry(jcfg)
+        draws = [_draws(rkey, pop, partial, geo) for rkey in used]
         ctls = [jax.tree.map(np.asarray, control(rkey)) for rkey in used]
         to_np = lambda t: jax.tree.map(np.asarray, t)
-        pop_np = {f: np.asarray(getattr(pop, f))
-                  for f in TTOPO.ClientPopulation._fields}
+        pop_np = population_numpy(pop)
         return dict(result=result, ctls=ctls, draws=draws, pop=pop_np,
                     params=to_np(params), state=to_np(state),
                     data=to_np(data))
@@ -117,7 +174,7 @@ def _port(tcfg, ref, mode="sync"):
     dt, cpu = torch.float64, "cpu"
     draws = TENG.InjectedDraws(
         weights.population_from_numpy(ref["pop"], dt, cpu),
-        [weights.round_draws_from_numpy(*d, dtype=dt, device=cpu)
+        [weights.round_draws_from_numpy(*d[:5], dtype=dt, device=cpu, **d[5])
          for d in ref["draws"]])
     start = weights.start_from_numpy(ref["params"], ref["state"], ref["data"],
                                      dtype=dt, device=cpu)
@@ -151,6 +208,12 @@ def test_round_controls_match(pair):
                 atol=1e-12 if f in ("prune", "per") else 0.0, err_msg=f)
         np.testing.assert_array_equal(tc.sol.iterations.numpy(),
                                       jc.sol.iterations)
+        assert (tc.sol.interference_psd is None) == \
+            (jc.sol.interference_psd is None)
+        if jc.sol.interference_psd is not None:
+            np.testing.assert_allclose(tc.sol.interference_psd.numpy(),
+                                       jc.sol.interference_psd, rtol=RTOL)
+            assert int(tc.sol.fp_iterations) == int(jc.sol.fp_iterations)
 
 
 def test_trajectories_params_and_bound_match(pair):
@@ -192,27 +255,14 @@ def test_default_config_runs_the_reference_kernel_on_cpu():
     assert res.losses[-1] < res.losses[0]
 
 
-@pytest.mark.parametrize("change", [
-    dict(telemetry={"gradients": True}), dict(cloud_period=2),
-    dict(geometry=JTOPO.HexInterference()), dict(cloud_period=1),
-    dict(cache_data=False), dict(task=None, dirichlet_alpha=0.3),
-])
+@pytest.mark.parametrize("change", [dict(telemetry={"gradients": True})])
 def test_unported_configs_raise(change):
     """What the port does not carry yet raises, naming its Queue A item
-    (6c: Dirichlet and streaming data; 6d: hex geometry; 6f: two-tier;
-    6g: telemetry)."""
+    (6g: telemetry)."""
     _, tcfg = _configs({})
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*6|6.*ROADMAP"):
         TENG.build_simulation(dataclasses.replace(tcfg, **change),
                               device="cpu")
-
-
-def test_async_mode_raises():
-    """Async runs now; async two-tier (``cloud_period``) still raises."""
-    _, tcfg = _configs({})
-    with pytest.raises(NotImplementedError, match=r"\(6f\).*ROADMAP.md"):
-        TENG.run_fleet(dataclasses.replace(tcfg, cloud_period=2),
-                       mode="async", device="cpu")
 
 
 def test_unknown_mask_kind_raises():
@@ -244,7 +294,7 @@ def test_tpu_kernel_names_are_aliases_of_fused(alias):
 def test_partial_schedule_needs_gumbel_draws():
     jcfg, tcfg = _configs(UNIFORM, (3, 5), rounds=1)
     ref = _reference(jcfg)
-    ref["draws"] = [d[:4] + (None,) for d in ref["draws"]]
+    ref["draws"] = [d[:4] + (None,) + d[5:] for d in ref["draws"]]
     with pytest.raises(ValueError, match="gumbel"):
         _port(tcfg, ref)
 
