@@ -25,7 +25,9 @@ Phases (any failure exits non-zero and prints no result line):
                prefill also at G = 4 / hd = 64 and G = 7 / hd = 128 with
                ragged t_valid, windows, a dead head; the tile norms in
                both regimes (the fleet's three layers, and smollm-135m's
-               bundle leaves in bfloat16, ``bundle_*``): within 1e-4 of the
+               bundle leaves in bfloat16, ``bundle_*``) and at block 16 on
+               the DNN's ragged leaves (the §V run's ranking,
+               ``block16_ms``): within 1e-4 of the
                plain version, bitwise alone / grouped / rerun, timed
                beside an einsum, the byte bound and an empty launch's
                device time (``launch_floor_ms``);
@@ -38,8 +40,11 @@ Phases (any failure exits non-zero and prints no result line):
                included) on the CPU (plain versions) and on the card
                (kernels), compared at 1e-4: the sync fused round, the
                cohort path, async events, the reference kernel with
-               magnitude and with block masks, and the paths of phases
-               10-12;
+               magnitude and with block masks, the paths of phases
+               10-12, a sync and a hex fleet with telemetry (masses
+               exact, bin counts equal but for values within 1e-5 of an
+               edge, which the line names), the §V ``run`` at 5 UEs with
+               magnitude and block-16 masks, and ``run_fleet_reference``;
   6. serve   — smollm-135m at full width (random weights from a seed,
                bfloat16, pruned at rho = 0.5 on its tile grid) through
                ServeEngine: 64 requests x (32 prompt + 32 new tokens) on 32
@@ -78,12 +83,41 @@ Phases (any failure exits non-zero and prints no result line):
                fused calls a round, equal bit for bit to the same run with
                cache_data=True, peak device memory of both; (b)
                Dirichlet(0.3) labels at the slice, 3 rounds, beside the IID
-               run's largest-class share.
+               run's largest-class share;
+ 13. telemetry — (a) phase 4 with TelemetryConfig(): losses, latencies
+               and params bitwise phase 4's, five (5, 100, 16) per-cell
+               histograms of mass 100, finite gradient norms and mask
+               densities in [0, 1], the warm round wall with telemetry off
+               and on in turns (medians) and a profiled round's device time
+               by record_function phase; (b) phase 10 (hex): fixed-point
+               iterations in 1..8, fp_residuals (3, 8), NaN past each
+               round's count, the last finite one fp_residual; (c) phase 8
+               (async): staleness mass 2,500 an event; (d) phase 11a
+               (two-tier), 2 rounds: finite edge gradient norms; each rerun
+               bitwise, telemetry included; (e) JSONL and CSV sinks (rounds
+               + 1 records) and a SpanRecorder's chrome trace of the build,
+               simulate and finalize spans;
+ 14. host reference path — (a) the paper's §V run on Table I (5 UEs, K =
+               30, 40, 50, 30, 40, the DNN, 20 rounds cut from 200), every
+               scheme (fpr at 0.3), magnitude and block-16 masks: finite
+               losses, proposed's falling and rerunning bitwise, one
+               tile-norm launch a round with block masks (none without),
+               proposed's mean total cost at most gba's and fpr:0.3's
+               (host float64), per scheme the mean cost, rho, PER, final
+               accuracy and wall a round; (b) run_fleet_reference at the
+               slice (the host solver over 100 cells), 2 rounds, beside
+               run_fleet's device solver on the same draws: one fused and
+               one tile-norm launch a round, control and apply ms, every
+               cell's deadline within 1e-3 of the device solver's; (c)
+               run_any on the card (5 clients an FLResult, 128 a
+               FleetResult).
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
 bitwise.  The line before the last is the kernels JSON (the fleet rows
-also carry the launches of phases 7-12); the last is the device JSON.
+also carry the launches of phases 7-14: ``telemetry_launches`` phase
+13a's, ``host_reference_launches`` phase 14b's, and row 2
+``fl_run_launches`` phase 14a's); the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -105,6 +139,13 @@ SLICE_CELLS, SLICE_PER_CELL, SLICE_ROUNDS = 100, 100, 5
 DNN = dict(feature_dim=784, hidden=(60, 20), num_classes=10, local_batch=8,
            prune_block=BLOCK)
 TOL = 1e-4
+# the engine's record_function phases and run_fleet's spans: a profile
+# shows each as a device-side annotation over its kernels, which is no
+# device work of its own
+PHASES = ("fleet.channel", "fleet.solve", "fleet.gradient", "fleet.merge",
+          "fleet.eval", "fleet.cloud_merge")
+ANNOTATIONS = frozenset(PHASES + ("fleet.build", "fleet.simulate",
+                                  "fleet.finalize"))
 
 
 def log(msg: str) -> None:
@@ -146,6 +187,7 @@ def device_ms(fn, iters: int, kernels: tuple = ()) -> float:
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in ANNOTATIONS
                    and (not kernels or any(k in e.key for k in kernels)))
     if total_us <= 0:
         log(f"  profiler recorded no device time for "
@@ -256,6 +298,11 @@ def check_tile_norms(params, card: str) -> dict:
     ws = [params[f"layer{i}"]["w"] for i in range(len(params))]
     fleet = norms_regime(f"fleet ({len(ws)} layers, block {BLOCK})", ws,
                          [(BLOCK, BLOCK)] * len(ws), 50, 50, floor_ms, card)
+    from repro_torch.federated.system import STRUCTURED_BLOCK as FL_BLOCK
+    dnn = norms_regime(f"the §V DNN's leaves (block {FL_BLOCK}, ragged "
+                       f"edges; phase 14's ranking)", ws,
+                       [(FL_BLOCK, FL_BLOCK)] * len(ws), 50, 50, floor_ms,
+                       card)
     rank_ms = cuda_ms(lambda: FF.layer_norm_states(params, BLOCK), 20)
     log(f"  the round's whole ranking (layer_norm_states: norms, then a sort "
         f"and a cumulative sum a layer): {rank_ms:.5f} ms a call, dispatch "
@@ -267,7 +314,9 @@ def check_tile_norms(params, card: str) -> dict:
     row = dict(name="tile_norms", route="cuda",
                source="src/repro_torch/kernels/csrc/block_norms.cu",
                replaces="src/repro/kernels/block_norms.py:24", **fleet)
-    row["max_abs_err"] = max(fleet["max_abs_err"], bundle["max_abs_err"])
+    row["max_abs_err"] = max(fleet["max_abs_err"], bundle["max_abs_err"],
+                             dnn["max_abs_err"])
+    row["block16_ms"] = dnn["ms"]
     row["launch_floor_ms"] = floor_ms
     row.update({f"bundle_{k}": v for k, v in bundle.items()
                 if k != "max_abs_err"})
@@ -864,7 +913,8 @@ def run_main_path(card: str) -> tuple[list, dict, dict]:
         raise AssertionError(f"rerun losses differ: {losses} vs {losses2}")
     log("  rerun: losses bitwise identical")
     return losses, counts, dict(busy_ms=busy_ms, warm_ms=sorted(walls[1:]),
-                                latencies=result.latencies.tolist())
+                                latencies=result.latencies.tolist(),
+                                losses=losses, params=result.params)
 
 
 def profile_round(sim, carry, r: int, card: str, what: str = "round"):
@@ -888,7 +938,8 @@ def profile_device(fn, what: str, card: str):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ANNOTATIONS]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         log(f"  profiled {what}: device time not measured (no CUDA events)")
@@ -962,7 +1013,8 @@ def card_vs_cpu(card: str, what: str = "sync, fused", mode: str = "sync",
     import numpy as np
     import torch
     from repro_torch import weights
-    from repro_torch.fleet import GeneratorDraws, InjectedDraws, run_fleet
+    from repro_torch.fleet import (GeneratorDraws, InjectedDraws,
+                                   build_simulation)
 
     cells, per_cell, rounds = 4, 8, 3
     n_draws = rounds + (mode == "async")
@@ -982,19 +1034,18 @@ def card_vs_cpu(card: str, what: str = "sync, fused", mode: str = "sync",
         state["label_cdf"] = np.cumsum(gam / gam.sum(-1, keepdims=True), -1)
     if data != "cached":
         batches = None
-    results = {}
+    results, sims = {}, {}
     for dev in ("cpu", "cuda"):
         src = InjectedDraws(weights.population_from_numpy(pop, device=dev),
                             [weights.round_draws_from_numpy(**d, device=dev)
                              for d in draws])
         start = weights.start_from_numpy(params, state, batches, device=dev)
-        results[dev] = run_fleet(cfg, mode, device=dev, draws=src,
-                                 start=start)
+        sims[dev] = build_simulation(cfg, mode, device=dev, draws=src,
+                                     start=start)
+        results[dev] = sims[dev].finalize(
+            *sims[dev].simulate(sims[dev].params))
     a, b = results["cuda"], results["cpu"]
-    loss_rel = float(np.max(np.abs(a.losses - b.losses) / np.abs(b.losses)))
-    par_rel = max(float(np.max(np.abs(a.params[k][n] - b.params[k][n]))
-                        / max(float(np.max(np.abs(b.params[k][n]))), 1e-30))
-                  for k in b.params for n in ("w", "b"))
+    loss_rel, par_rel = losses_params_rel(a, b)
     time_rel = float(np.max(np.abs(a.wall_clock - b.wall_clock)
                             / np.abs(b.wall_clock)))
     # a mean staleness is a mean of equal integers: rounding apart
@@ -1010,12 +1061,102 @@ def card_vs_cpu(card: str, what: str = "sync, fused", mode: str = "sync",
         raise AssertionError(f"card and CPU runs disagree ({what})")
     if not np.array_equal(a.participants, b.participants):
         raise AssertionError(f"card and CPU participants differ ({what})")
+    if cfg.telemetry is not None:
+        telemetry_card_vs_cpu(what, sims["cpu"], a.telemetry, b.telemetry,
+                              card)
+
+
+def losses_params_rel(a, b) -> tuple[float, float]:
+    """Largest relative loss error and largest params error over each
+    leaf's scale, of results ``a`` against ``b`` (numpy params dicts)."""
+    import numpy as np
+    la, lb = np.asarray(a.losses), np.asarray(b.losses)
+    loss_rel = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    par_rel = max(float(np.max(np.abs(a.params[k][n] - b.params[k][n]))
+                        / max(float(np.max(np.abs(b.params[k][n]))), 1e-30))
+                  for k in b.params for n in ("w", "b"))
+    return loss_rel, par_rel
+
+
+# the control pass's input to each per-cell histogram, and its range
+HIST_INPUTS = {
+    "per_hist": ("per_range", lambda c, b_hz: c.sol.per),
+    "rho_hist": ("rho_range", lambda c, b_hz: c.sol.prune),
+    "bw_hist": ("bw_share_range", lambda c, b_hz: c.sol.bandwidth / b_hz),
+    "latency_hist": ("latency_range_s", lambda c, b_hz: c.t_client),
+    "sinr_hist": ("sinr_db_range", lambda c, b_hz: c.sinr_db),
+}
+EDGE_RTOL = 1e-5
+
+
+def telemetry_card_vs_cpu(what: str, sim_cpu, tel_card: dict, tel_cpu: dict,
+                          card: str) -> None:
+    """Telemetry of a card run against the CPU run's: every histogram's
+    mass exact; per-bin counts equal, except that a count may sit in the
+    neighbouring bin for a value within EDGE_RTOL (relative) of the edge
+    between them (found from the CPU run's control passes, and named);
+    every other summary within TOL of its largest entry (the fixed
+    point's last residual, a difference of two nearly equal float32
+    PSDs, within TOL of its trajectory's largest, first step)."""
+    import collections
+    import numpy as np
+    tcfg = sim_cpu.cfg.telemetry
+    b_hz = sim_cpu.cfg.wireless.bandwidth_hz
+    if set(tel_card) != set(tel_cpu):
+        raise AssertionError(f"telemetry keys differ ({what})")
+    notes, edge_counts, worst = [], collections.Counter(), (0.0, "")
+    for name, v in tel_cpu.items():
+        g = tel_card[name]
+        if g.shape != v.shape:
+            raise AssertionError(f"{name} shapes differ ({what})")
+        if name.endswith("_hist"):
+            if not np.array_equal(g.sum(-1), v.sum(-1)):
+                raise AssertionError(f"{name} mass differs ({what})")
+            moved = np.abs(g - v).sum(-1)
+            if not moved.any():
+                continue
+            if name not in HIST_INPUTS:
+                raise AssertionError(f"{name} counts differ ({what})")
+            field, fn = HIST_INPUTS[name]
+            lo, hi = getattr(tcfg, field)
+            edges = np.linspace(lo, hi, tcfg.bins + 1)[1:-1]
+            for r in range(v.shape[0]):
+                vals = fn(sim_cpu.control(r), b_hz).numpy()
+                near = np.abs(vals[..., None] - edges) \
+                    <= EDGE_RTOL * np.maximum(np.abs(edges), 1.0)
+                if np.any(moved[r] > 2 * near.any(-1).sum(-1)):
+                    raise AssertionError(f"{name} round {r}: counts moved "
+                                         f"with no value at an edge ({what})")
+                for e in np.nonzero(near.any(-2))[1]:
+                    edge_counts[(name, float(edges[e]))] += 1
+        elif name in ("solver_iters", "fp_iterations"):
+            notes += [f"{name} differs by up to "
+                      f"{int(np.max(np.abs(g - v)))}"] if (g != v).any() \
+                else []
+        else:
+            if not np.array_equal(np.isnan(g), np.isnan(v)):
+                raise AssertionError(f"{name}: NaN entries differ ({what})")
+            ok = ~np.isnan(v)
+            ref = tel_cpu["fp_residuals"] if name == "fp_residual" \
+                and "fp_residuals" in tel_cpu else v
+            scale = max(float(np.nanmax(np.abs(ref))), 1e-30)
+            err = float(np.max(np.abs(g[ok] - v[ok]))) / scale
+            worst = max(worst, (err, name))
+            if err > TOL:
+                raise AssertionError(f"{name}: rel err {err:.3e} ({what})")
+    notes += [f"{name} {n} cell-round(s) with a value at edge {edge:g}"
+              for (name, edge), n in sorted(edge_counts.items())]
+    log(f"  [{what}] telemetry: {len(tel_cpu)} summaries, masses exact, "
+        f"continuous ones rel err {worst[0]:.3e} (worst {worst[1]}; tol "
+        f"{TOL}); {'; '.join(notes) if notes else 'every bin count equal'}"
+        f" [{card}]")
 
 
 def card_vs_cpu_paths(card: str) -> None:
     """Phase 5: the sync fused round, then each path phases 7-12 drive."""
     from repro_torch.fleet import (AsyncConfig, HexInterference,
-                                   ScheduleConfig, SolverConfig)
+                                   ScheduleConfig, SolverConfig,
+                                   TelemetryConfig)
     card_vs_cpu(card)
     card_vs_cpu(card, "cohort: uniform m=3, control_chunk=3",
                 schedule=ScheduleConfig(participation="uniform",
@@ -1039,6 +1180,75 @@ def card_vs_cpu_paths(card: str) -> None:
     card_vs_cpu(card, "Dirichlet(0.3) labels", data="dirichlet")
     card_vs_cpu(card, "streaming, cache_data=False", data="streaming",
                 cache_data=False)
+    card_vs_cpu(card, "sync, fused, telemetry", telemetry=TelemetryConfig())
+    card_vs_cpu(card, "hex: reuse 1, fp_rtol 0, telemetry",
+                geometry=HexInterference(reuse=1, max_neighbors=2,
+                                         mobility_m=25.0),
+                solver=SolverConfig(fp_rtol=0.0),
+                telemetry=TelemetryConfig())
+    card_vs_cpu_run(card)
+    card_vs_cpu_fleet_reference(card)
+
+
+def card_vs_cpu_run(card: str) -> None:
+    """The §V ``run`` at 5 UEs (the DNN, 3 rounds) from the same numpy
+    params and packet uniforms on the CPU and on the card, with magnitude
+    and with block-16 masks: losses and params within TOL, the host
+    solver's costs equal."""
+    import numpy as np
+    from repro_torch import weights
+    from repro_torch.federated import system as SYS
+    rng = np.random.default_rng(13)
+    sizes = (DNN["feature_dim"],) + DNN["hidden"] + (DNN["num_classes"],)
+    params = {f"layer{i}": {"w": rng.normal(size=(a, b)) * np.sqrt(2.0 / a),
+                            "b": np.zeros(b)}
+              for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))}
+    uniforms = rng.uniform(size=(3, 5))
+    for structured in (False, True):
+        cfg = SYS.FLConfig(rounds=3, hidden=DNN["hidden"],
+                           structured=structured)
+        out = {dev: SYS.run(cfg, device=dev,
+                            start=weights.run_start_from_numpy(
+                                params, uniforms, device=dev))
+               for dev in ("cpu", "cuda")}
+        a, b = out["cuda"], out["cpu"]
+        loss_rel, par_rel = losses_params_rel(a, b)
+        what = f"run, 5 UEs, structured={structured}"
+        log(f"  [{what}] losses card {a.losses} cpu {b.losses}; loss rel "
+            f"err {loss_rel:.3e}, params rel err {par_rel:.3e} (tol {TOL}); "
+            f"accuracy {a.accuracy} / {b.accuracy} [{card}]")
+        if loss_rel > TOL or par_rel > TOL or a.total_costs != b.total_costs:
+            raise AssertionError(f"card and CPU runs disagree ({what})")
+
+
+def card_vs_cpu_fleet_reference(card: str) -> None:
+    """``run_fleet_reference`` on a 4 x 8 fleet from the same numpy draws
+    on the CPU and on the card: losses, params and deadlines within
+    TOL."""
+    import numpy as np
+    from repro_torch import weights
+    from repro_torch.federated import system as SYS
+    from repro_torch.fleet import InjectedDraws
+    pop, draws, params, state, batches = numpy_fleet(4, 8, 3)
+    cfg = slice_config(rounds=3, cells=4, per_cell=8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        src = InjectedDraws(weights.population_from_numpy(pop, device=dev),
+                            [weights.round_draws_from_numpy(**d, device=dev)
+                             for d in draws])
+        out[dev] = SYS.run_fleet_reference(
+            cfg, device=dev, draws=src,
+            start=weights.start_from_numpy(params, state, batches,
+                                           device=dev))
+    a, b = out["cuda"], out["cpu"]
+    loss_rel, par_rel = losses_params_rel(a, b)
+    dl_rel = float(np.max(np.abs(a.deadlines - b.deadlines)
+                          / np.abs(b.deadlines)))
+    log(f"  [run_fleet_reference, 4x8] losses card {a.losses.tolist()} cpu "
+        f"{b.losses.tolist()}; loss rel err {loss_rel:.3e}, params rel err "
+        f"{par_rel:.3e}, deadlines rel err {dl_rel:.3e} (tol {TOL}) [{card}]")
+    if loss_rel > TOL or par_rel > TOL or dl_rel > TOL:
+        raise AssertionError("card and CPU run_fleet_reference disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1464,6 +1674,344 @@ def run_data(card: str) -> tuple[dict, dict]:
     return stream_counts, dirichlet_counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: telemetry at the slice; phase 14: the host reference path
+# ---------------------------------------------------------------------------
+
+TEL_HISTS = ("per_hist", "rho_hist", "bw_hist", "latency_hist", "sinr_hist")
+TEL_TIER_ROUNDS, TEL_OVERHEAD_PAIRS = 2, 4
+
+
+def with_telemetry(cfg):
+    import dataclasses
+    from repro_torch.fleet import TelemetryConfig
+    return dataclasses.replace(cfg, telemetry=TelemetryConfig())
+
+
+def rerun_telemetry(cfg, mode: str, result, what: str) -> None:
+    """A second build and run of ``cfg``: losses and every telemetry
+    array bitwise equal to ``result``'s (NaN where NaN)."""
+    import numpy as np
+    from repro_torch.fleet import build_simulation
+    again = build_simulation(cfg, mode)
+    res2 = again.finalize(*again.simulate(again.params))
+    if not np.array_equal(res2.losses, result.losses):
+        raise AssertionError(f"{what} rerun losses differ")
+    for name, v in result.telemetry.items():
+        if not np.array_equal(res2.telemetry[name], v, equal_nan=True):
+            raise AssertionError(f"{what} rerun: telemetry {name} differs")
+    log(f"  {what} rerun: losses and {len(result.telemetry)} telemetry "
+        f"arrays bitwise identical")
+
+
+def phase_device_ms(fn, card: str) -> None:
+    """``fn`` once under torch.profiler: for each ``record_function``
+    phase of the engine, the device time of the kernels, copies and
+    fills launched inside it (matched to their launch by the trace's
+    correlation ids, so the kernels launched through ctypes count too),
+    beside the phase's host time."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") in PHASES]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    dev, host, total = {}, {}, 0.0
+    for name, t0, t1 in spans:
+        host[name] = host.get(name, 0.0) + (t1 - t0)
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        total += e["dur"]
+        t = launched.get(e.get("args", {}).get("correlation"))
+        for name, t0, t1 in spans:
+            if t is not None and t0 <= t <= t1:
+                dev[name] = dev.get(name, 0.0) + e["dur"]
+    if not spans or total <= 0:
+        log("  device time by phase: not measured (no phase spans or no "
+            "device events in the trace)")
+        return
+    parts = [f"{k} {dev.get(k, 0.0) / 1e3:.3f} ms device / "
+             f"{host[k] / 1e3:.2f} ms host" for k in PHASES if k in host]
+    log(f"  profiled round by phase: {'; '.join(parts)}; device total "
+        f"{total / 1e3:.3f} ms [{card}]")
+
+
+def telemetry_overhead(sim_off, carry_off, sim_on, carry_on, r: int,
+                       card: str) -> dict:
+    """Warm steps of the same round with telemetry off and on, in turns
+    (off, on, on, off, ...): the medians of their walls in ms."""
+    import statistics
+    import torch
+    walls = {"off": [], "on": []}
+    for i in range(TEL_OVERHEAD_PAIRS):
+        order = (("off", sim_off, carry_off), ("on", sim_on, carry_on))
+        for what, sim, carry in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.step(carry, r)
+            torch.cuda.synchronize()
+            walls[what].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"  warm round wall, telemetry off {med['off']:.2f} ms / on "
+        f"{med['on']:.2f} ms (medians of {TEL_OVERHEAD_PAIRS}, in turns): "
+        f"overhead {med['on'] - med['off']:+.2f} ms "
+        f"({100 * (med['on'] / med['off'] - 1):+.1f}%); off "
+        f"{fmt_walls(walls['off'])}, on {fmt_walls(walls['on'])} [{card}]")
+    return med
+
+
+def run_telemetry(card: str, main: dict) -> dict:
+    """Phase 13: telemetry on the main path and on the hex, async and
+    two-tier paths at the slice, the sinks and the span recorder."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.fleet import (AsyncConfig, CSVSink, HexInterference,
+                                   JSONLSink, SpanRecorder, build_simulation,
+                                   emit_result, run_fleet)
+
+    # (a) phase 4's configuration
+    cfg = with_telemetry(slice_config())
+    sim = build_simulation(cfg)
+    carry, metrics, walls, steps, _ = drive(sim, "telemetry round", card)
+    check_steps("telemetry round", steps,
+                {"fleet_fused_grads": 1, "tile_norms": 1})
+    counts = fleet_counts()
+    res = sim.finalize(carry, metrics)
+    if res.losses.tolist() != main["losses"] \
+            or res.latencies.tolist() != main["latencies"]:
+        raise AssertionError("telemetry changed the losses or latencies")
+    for k, layer in main["params"].items():
+        for n, v in layer.items():
+            if not np.array_equal(res.params[k][n], v):
+                raise AssertionError(f"telemetry changed params {k}/{n}")
+    log("  losses, latencies and params bitwise equal to phase 4's "
+        "telemetry-off run")
+    tel = res.telemetry
+    cells, per_cell = cfg.topology.shape
+    for name in TEL_HISTS:
+        h = tel[name]
+        if h.shape != (cfg.rounds, cells, cfg.telemetry.bins) \
+                or not np.all(h.sum(-1) == per_cell):
+            raise AssertionError(f"{name}: shape {h.shape}, masses "
+                                 f"{np.unique(h.sum(-1))}")
+    g, d = tel["grad_norm"], tel["mask_density"]
+    if not (np.isfinite(g).all() and (g >= 0).all()
+            and ((d >= 0) & (d <= 1)).all()):
+        raise AssertionError(f"grad_norm {g} mask_density {d}")
+    log(f"  {', '.join(TEL_HISTS)}: {tel['per_hist'].shape} each, every "
+        f"cell's mass {per_cell}; grad_norm {np.round(g, 6).tolist()}, "
+        f"mask_density {np.round(d, 4).tolist()}; bw share bins of round 0 "
+        f"summed over cells {tel['bw_hist'][0].sum(0).astype(int).tolist()}")
+    off = build_simulation(slice_config())
+    carry_off = off.step(off.init_carry(off.params), 0)[0]
+    med = telemetry_overhead(off, carry_off, sim, carry, cfg.rounds - 1,
+                             card)
+    phase_device_ms(lambda: sim.step(carry, cfg.rounds - 1), card)
+    rerun_telemetry(cfg, "sync", res, "telemetry")
+    del sim, off, carry, carry_off
+
+    # (b) phase 10's hex configuration
+    hcfg = with_telemetry(dataclasses.replace(
+        slice_config(rounds=HEX_ROUNDS),
+        geometry=HexInterference(reuse=3, max_neighbors=6, mobility_m=25.0,
+                                 handover=True)))
+    sim = build_simulation(hcfg)
+    res = sim.finalize(*drive(sim, "telemetry hex round", card)[:2])
+    tel = res.telemetry
+    it, resid, last = (tel["fp_iterations"], tel["fp_residuals"],
+                       tel["fp_residual"])
+    fp_iters = hcfg.solver.fp_iters
+    if resid.shape != (hcfg.rounds, fp_iters) \
+            or not all(1 <= i <= fp_iters for i in it):
+        raise AssertionError(f"fp_iterations {it}, fp_residuals "
+                             f"{resid.shape}")
+    for r in range(hcfg.rounds):
+        if not (np.isfinite(resid[r, :it[r]]).all()
+                and np.isnan(resid[r, it[r]:]).all()
+                and resid[r, it[r] - 1] == last[r]):
+            raise AssertionError(f"round {r}: residuals {resid[r]} against "
+                                 f"{it[r]} iterations, last {last[r]}")
+    log(f"  hex: fp_iterations {it.tolist()}, fp_residuals {resid.shape} "
+        f"NaN past each round's count, last finite = fp_residual "
+        f"({np.array2string(last, precision=3)} W/Hz)")
+    rerun_telemetry(hcfg, "sync", res, "telemetry hex")
+    del sim
+    torch.cuda.empty_cache()
+
+    # (c) phase 8's async configuration
+    acfg = with_telemetry(dataclasses.replace(
+        slice_config(rounds=ASYNC_EVENTS),
+        async_config=AsyncConfig(buffer_size=ASYNC_BUFFER,
+                                 max_staleness=ASYNC_STALENESS,
+                                 staleness_discount="polynomial")))
+    sim = build_simulation(acfg, "async")
+    res = sim.finalize(*drive(sim, "telemetry async event",
+                                     card)[:2])
+    sh = res.telemetry["staleness_hist"]
+    if not np.all(sh.sum(-1) == ASYNC_BUFFER):
+        raise AssertionError(f"staleness_hist masses {sh.sum(-1)}")
+    log(f"  async: staleness_hist {sh.shape}, every event's mass "
+        f"{ASYNC_BUFFER} (the buffer); bins summed over events "
+        f"{sh.sum(0).astype(int).tolist()}")
+    rerun_telemetry(acfg, "async", res, "telemetry async")
+    del sim
+    torch.cuda.empty_cache()
+
+    # (d) phase 11a's two-tier configuration
+    tcfg = with_telemetry(dataclasses.replace(
+        slice_config(rounds=TEL_TIER_ROUNDS), cloud_period=TIER_PERIOD))
+    sim = build_simulation(tcfg)
+    res = sim.finalize(*drive(sim, "telemetry two-tier round",
+                                     card)[:2])
+    g = res.telemetry["grad_norm"]
+    if not (np.isfinite(g).all() and (g >= 0).all()):
+        raise AssertionError(f"two-tier grad_norm {g}")
+    log(f"  two-tier: edge grad_norm {g.tolist()}")
+    rerun_telemetry(tcfg, "sync", res, "telemetry two-tier")
+    del sim
+    torch.cuda.empty_cache()
+
+    # (e) sinks and spans
+    rec = SpanRecorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl, csv_path = Path(tmp) / "run.jsonl", Path(tmp) / "run.csv"
+        sink = JSONLSink(str(jsonl))
+        res = run_fleet(with_telemetry(slice_config(rounds=2)), sink=sink,
+                        recorder=rec)
+        sink.close()
+        emit_result(res, CSVSink(str(csv_path)), close=True)
+        lines = jsonl.read_text().splitlines()
+        rows = csv_path.read_text().splitlines()
+        trace = rec.write(str(Path(tmp) / "trace.json"))
+        names = {e["name"] for e in json.loads(
+            Path(trace).read_text())["traceEvents"]}
+    if len(lines) != 3 or len(rows) != 4:     # the CSV adds its header
+        raise AssertionError(f"sinks wrote {len(lines)} JSONL records and "
+                             f"{len(rows)} CSV rows for 2 rounds")
+    if names != {"fleet.build", "fleet.simulate", "fleet.finalize"}:
+        raise AssertionError(f"trace spans {names}")
+    spans = {e["name"]: e["dur"] / 1e3 for e in rec.events}
+    log(f"  JSONL and CSV sinks: 3 records each (header + 2 rounds); "
+        f"chrome trace spans " + ", ".join(f"{k} {v:.1f} ms"
+                                           for k, v in spans.items()))
+    return dict(counts=counts, overhead=med)
+
+
+HOST_SCHEMES = ("proposed", "gba", "fpr:0.3", "exhaustive", "ideal")
+SV_ROUNDS, REF_HOST_ROUNDS = 20, 2
+
+
+def run_host_reference(card: str) -> dict:
+    """Phase 14: (a) the §V run on Table I, every scheme, both mask
+    kinds; (b) run_fleet_reference at the slice beside run_fleet on the
+    same draws; (c) run_any on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.federated import system as SYS
+    from repro_torch.fleet import FleetResult, build_simulation
+
+    # (a) 5 UEs, K = (30, 40, 50, 30, 40), the DNN, SV_ROUNDS rounds
+    costs, norms_total = {}, 0
+    for structured in (False, True):
+        for scheme in HOST_SCHEMES:
+            cfg = SYS.FLConfig(hidden=DNN["hidden"], rounds=SV_ROUNDS,
+                               scheme=scheme, structured=structured)
+            zero_fleet_counts()
+            t0 = time.perf_counter()
+            res = SYS.run(cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / cfg.rounds
+            counts = fleet_counts()
+            want = {"fleet_fused_grads": 0,
+                    "tile_norms": cfg.rounds if structured else 0}
+            if counts != want:
+                raise AssertionError(f"run {scheme} structured={structured}"
+                                     f" launched {counts}, not {want}")
+            norms_total += counts["tile_norms"]
+            if not np.isfinite(res.losses).all():
+                raise AssertionError(f"run {scheme}: losses {res.losses}")
+            costs[(scheme, structured)] = float(np.mean(res.total_costs))
+            log(f"  run [{scheme}, structured={structured}]: mean cost "
+                f"{costs[(scheme, structured)]:.6f}, mean rho "
+                f"{res.prune_rates.mean():.4f}, mean PER "
+                f"{res.per_rates.mean():.5f}, loss {res.losses[0]:.5f} -> "
+                f"{res.losses[-1]:.5f}, final accuracy "
+                f"{res.accuracy[-1][1]:.4f}, {wall:.1f} ms a round, "
+                f"launches {json.dumps(counts)} [{card}]")
+            if scheme == "proposed":
+                if not res.losses[-1] < res.losses[0]:
+                    raise AssertionError(f"proposed loss does not fall: "
+                                         f"{res.losses}")
+                again = SYS.run(cfg)
+                if again.losses != res.losses:
+                    raise AssertionError("run rerun losses differ")
+                log("  run rerun: losses bitwise identical")
+        for base in ("gba", "fpr:0.3"):
+            if costs[("proposed", structured)] > costs[(base, structured)]:
+                raise AssertionError(f"proposed costs more than {base}: "
+                                     f"{costs}")
+    log(f"  mean total cost: proposed <= gba and fpr:0.3 (both mask kinds)")
+
+    # (b) run_fleet_reference at the slice, beside run_fleet
+    cfg = slice_config(rounds=REF_HOST_ROUNDS)
+    dev_sim = build_simulation(cfg)
+    host_sim = dataclasses.replace(
+        build_simulation(cfg),
+        solve_fn=SYS._host_cell_solver(cfg, dev_sim.population))
+    gaps = []
+
+    def note(r, ctl, m):
+        dev_dl = dev_sim.control(r).sol.deadline
+        gap = float(((ctl.sol.deadline - dev_dl).abs() / dev_dl.abs()).max())
+        gaps.append(gap)
+        return (f"deadline gap to the device solver {gap:.3e}, mean_rho "
+                f"{float(m['mean_prune']):.4f}")
+
+    carry, metrics, walls, steps, _ = drive(host_sim, "host-reference round",
+                                            card, note=note)
+    check_steps("host-reference round", steps,
+                {"fleet_fused_grads": 1, "tile_norms": 1})
+    host_counts = fleet_counts()
+    res = host_sim.finalize(carry, metrics)
+    fleet = dev_sim.finalize(*dev_sim.simulate(dev_sim.params))
+    log(f"  run_fleet_reference at {cfg.topology.num_clients} clients: "
+        f"losses {res.losses.tolist()} (run_fleet {fleet.losses.tolist()}), "
+        f"mean prune {res.mean_prune.tolist()} (run_fleet "
+        f"{fleet.mean_prune.tolist()}); largest deadline gap "
+        f"{max(gaps):.3e} (tol 1e-3) [{card}]")
+    if max(gaps) > 1e-3:
+        raise AssertionError(f"host and device deadlines differ by "
+                             f"{max(gaps):.3e}")
+    del dev_sim, host_sim, carry
+    torch.cuda.empty_cache()
+
+    # (c) run_any on the card
+    small = SYS.run_any(SYS.FLConfig(rounds=2))
+    big = SYS.run_any(SYS.FLConfig(num_clients=128, rounds=2))
+    if not (isinstance(small, SYS.FLResult)
+            and isinstance(big, FleetResult)):
+        raise AssertionError(f"run_any gave {type(small).__name__} and "
+                             f"{type(big).__name__}")
+    log(f"  run_any: 5 clients -> FLResult (losses {small.losses}), 128 -> "
+        f"FleetResult (losses {big.losses.tolist()}) [{card}]")
+    return dict(host_counts=host_counts, fl_norms=norms_total)
+
+
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.3f} ms"
 
@@ -1790,6 +2338,10 @@ def main() -> int:
     tier, tier_async = run_two_tier(card, main)
     log("[12] client data: streaming and Dirichlet labels")
     streamed, dirichlet = run_data(card)
+    log("[13] telemetry at the slice")
+    telemetry = run_telemetry(card, main)
+    log("[14] the host reference path")
+    host = run_host_reference(card)
     for row in rows:
         row["cohort_launches"] = cohort[row["name"]]
         row["async_launches"] = asynced[row["name"]]
@@ -1800,6 +2352,9 @@ def main() -> int:
         row["two_tier_async_launches"] = tier_async[row["name"]]
         row["streaming_launches"] = streamed[row["name"]]
         row["dirichlet_launches"] = dirichlet[row["name"]]
+        row["telemetry_launches"] = telemetry["counts"][row["name"]]
+        row["host_reference_launches"] = host["host_counts"][row["name"]]
+    rows[1]["fl_run_launches"] = host["fl_norms"]
     rows += serve_rows
 
     print(json.dumps({"kernels": rows}))

@@ -90,7 +90,8 @@ def profile_step(sim, carry, r: int):
         sim.step(carry, r)
         torch.cuda.synchronize()
     ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.key not in CS.ANNOTATIONS]
     ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
     fused = ms([e for e in ops if any(k in e.key for k in CS.FUSED_KERNELS)])
     norms = ms([e for e in ops if "tile_norms_kernel" in e.key])

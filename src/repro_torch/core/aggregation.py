@@ -16,9 +16,9 @@ trees whose leaves lead with the client axis.
 
 Random draws take their uniforms from the caller (``sample_arrivals``),
 as the scheduler's do.  ``psum_aggregate``, the reference's collective
-form, comes with ``torch.distributed`` (ROADMAP.md Queue A, item 10); the
-numpy half of the reference module comes with the host reference path
-(item 7).
+form, comes with ``torch.distributed`` (ROADMAP.md Queue A, item 10).
+The reference's ``xp=numpy`` lane is these functions on CPU tensors; the
+host reference path (``federated/``) runs them on the model's device.
 """
 
 from __future__ import annotations

@@ -11,12 +11,19 @@ Tensors may carry any leading batch dims (cells); the client axis is
 last.  Loops run a fixed trip count with no early exit, as the device
 path of the reference does, so no value leaves the device.  Scalars may
 be Python floats; dtypes follow the tensor inputs.
+
+``on_host`` runs any of them on numpy arrays, as float64 CPU tensors: the
+reference's numpy lane (``core/wireless.py``, ``core/tradeoff.py``).  The
+numpy lane of the reference stops its Newton loop once every element has
+converged; here the loop runs its fixed trip count, and since a converged
+step moves the iterate by rounding only, the two agree to rounding.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -31,6 +38,7 @@ __all__ = [
     "min_bandwidth_for_rates",
     "bandwidth_for_deadline",
     "surrogate_m",
+    "on_host",
 ]
 
 _LN2 = math.log(2.0)
@@ -229,3 +237,25 @@ def surrogate_m(num_samples, beta, xi1, xi2, weight_bound, mask=None):
     return torch.maximum(8.0 * xi1 / (d * k_tot),
                          2.0 * beta**2 * count * weight_bound**2
                          / (d * k_tot**2))
+
+
+# ---------------------------------------------------------------------------
+# The numpy lane
+# ---------------------------------------------------------------------------
+
+def _host_tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float64))
+
+
+def on_host(fn, *args, **kw):
+    """``fn(*args, **kw)`` on float64 CPU tensors, its result as numpy
+    float64 arrays (a tuple stays a tuple).  Every positional argument and
+    every float or array keyword argument is converted; integer keywords
+    (``iters``) and None pass as they are."""
+    args = [_host_tensor(a) for a in args]
+    kw = {k: v if v is None or isinstance(v, (bool, int, np.integer))
+          else _host_tensor(v) for k, v in kw.items()}
+    out = fn(*args, **kw)
+    if isinstance(out, tuple):
+        return tuple(o.numpy() for o in out)
+    return out.numpy()

@@ -1,7 +1,9 @@
 """Convergence theory of pruned FL (paper §III-A, Theorem 1), in numpy.
 
 The port's own copy of ``repro.core.convergence`` (the fleet engine
-evaluates the bound on the host after a run):
+evaluates the bound on the host after a run; the host reference path
+prices its trade-off with ``gamma`` and tracks the realized rates with
+``RoundTracker``):
 
   (1/(S+1)) sum_s E||grad F(W_s)||^2
     <=  2 beta (F(W_0) - F(W*)) / (d (S+1))
@@ -17,7 +19,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["SmoothnessParams", "ConvergenceBound"]
+__all__ = ["SmoothnessParams", "ConvergenceBound", "RoundTracker"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +80,40 @@ class ConvergenceBound:
         return max(8.0 * p.xi1 / (p.d * self.k_total),
                    2.0 * p.beta**2 * self.num_clients * p.weight_bound**2
                    / (p.d * self.k_total**2))
+
+    def psi(self, num_rounds: int) -> float:
+        return self.initial_term(num_rounds)
+
+    def gamma(self, per: np.ndarray, prune: np.ndarray,
+              num_rounds: int) -> float:
+        """gamma = psi + m sum_i K_i (q_i + K_i rho_i)."""
+        return self.psi(num_rounds) + self.learning_cost(per, prune)
+
+    def learning_cost(self, per: np.ndarray, prune: np.ndarray) -> float:
+        """The optimizable part of gamma: m sum_i K_i (q_i + K_i rho_i)."""
+        per = np.asarray(per, dtype=np.float64)
+        prune = np.asarray(prune, dtype=np.float64)
+        return float(self.m * np.sum(self.k * (per + self.k * prune)))
+
+
+class RoundTracker:
+    """Accumulates each round's (q_i, rho_i), so the average rates that
+    feed Theorem 1 are exact over the realized schedule."""
+
+    def __init__(self, num_clients: int):
+        self.per_sum = np.zeros(num_clients)
+        self.prune_sum = np.zeros(num_clients)
+        self.rounds = 0
+
+    def record(self, per: np.ndarray, prune: np.ndarray) -> None:
+        self.per_sum += np.asarray(per, dtype=np.float64)
+        self.prune_sum += np.asarray(prune, dtype=np.float64)
+        self.rounds += 1
+
+    @property
+    def avg_per(self) -> np.ndarray:
+        return self.per_sum / max(self.rounds, 1)
+
+    @property
+    def avg_prune(self) -> np.ndarray:
+        return self.prune_sum / max(self.rounds, 1)

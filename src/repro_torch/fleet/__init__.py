@@ -5,7 +5,8 @@ with co-channel interference, mobility and handover), the closed-form
 trade-off solver batched over cells with its interference fixed point
 (``solver``), the scheduler's masks, cohorts and async arrivals
 (``scheduler``), the synthetic MLP task with its per-client data
-(``task``) and the round and event loops (``engine``).
+(``task``), the round and event loops (``engine``) and the opt-in
+telemetry: per-round summaries, trace spans and sinks (``telemetry``).
 """
 
 from repro_torch.fleet.engine import (  # noqa: F401
@@ -15,5 +16,8 @@ from repro_torch.fleet.engine import (  # noqa: F401
 from repro_torch.fleet.scheduler import AsyncConfig, ScheduleConfig  # noqa: F401
 from repro_torch.fleet.solver import SolverConfig  # noqa: F401
 from repro_torch.fleet.task import FleetTask, SyntheticMLPTask  # noqa: F401
+from repro_torch.fleet.telemetry import (  # noqa: F401
+    CSVSink, JSONLSink, MemorySink, SpanRecorder, TelemetryConfig,
+    TelemetrySink, emit_result, sink_for_path)
 from repro_torch.fleet.topology import (  # noqa: F401
     FleetTopology, HexInterference, OrthogonalCells, make_geometry)

@@ -1,10 +1,10 @@
 """Fleet rounds and events: channel -> solver -> pruned FedSGD -> aggregation.
 
-The port of ``repro.fleet.engine`` (its telemetry comes with ROADMAP.md
-Queue A item 6g).  Two modes share one control pass
+The port of ``repro.fleet.engine``.  Two modes share one control pass
 (``_make_control_fn``: the geometry's channel, schedule, Algorithm 1 over
-every cell (``fleet/solver.py``), realized latencies, straggler and
-packet draws):
+every cell (``fleet/solver.py``, or a foreign ``solve_fn`` such as the
+host reference solver of ``federated/system.py``), realized latencies,
+straggler and packet draws):
 
 * ``mode="sync"`` — the paper's FedSGD barrier.  A round ranks the model's
   tiles once, trains every scheduled client on its pruned model, applies
@@ -71,6 +71,17 @@ R - 1; an async run of R events reads R + 1 (draw 0 launches the fleet,
 event r relaunches with draw r + 1).  The model and data side can
 likewise be supplied as a ``SimStart``.
 
+Telemetry (``FleetConfig.telemetry``, ``fleet/telemetry.py``; off by
+default, and then a run is what it was without it): each round's or
+event's metrics gain ``tel_``-prefixed summaries (per-cell histograms of
+the control pass, gradient norm and mask density, async staleness, the
+solver's diagnostics), device tensors until ``Simulation.finalize``
+stacks them into ``FleetResult.telemetry``.  ``run_fleet(sink=...,
+recorder=...)`` emits per-round records and records the build, simulate
+and finalize spans.  The round's phases are ``record_function`` scopes
+(``fleet.channel``, ``fleet.solve``, ``fleet.gradient``, ``fleet.merge``,
+``fleet.eval``, ``fleet.cloud_merge``) whether telemetry is on or not.
+
 Precision: ``dtype`` (default float32) plays the part of the reference's
 global x64 flag.  On the card the kernels take float32 only, and
 ``device.resolve_device`` turns TF32 off for matrix products and cuDNN so
@@ -95,6 +106,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fleet import scheduler as SCHED
 from repro_torch.fleet import solver as SOLVER
 from repro_torch.fleet import task as TASK
+from repro_torch.fleet import telemetry as TEL
 from repro_torch.fleet import topology as TOPO
 from repro_torch.kernels import fleet_fused as FUSED
 
@@ -124,6 +136,7 @@ class FleetConfig:
     ``cache_data``: None caches the client batches when the task allows it
     and they fit 512 MB; True always; False streams them.
     ``cloud_period``: 0 is single tier; n >= 1 the two-tier hierarchy.
+    ``telemetry``: None (off) or a ``TelemetryConfig``.
     """
 
     topology: TOPO.FleetTopology = dataclasses.field(
@@ -160,7 +173,7 @@ class FleetConfig:
     cache_data: Optional[bool] = None
     cloud_period: int = 0
     dirichlet_alpha: Optional[float] = None
-    telemetry: Optional[Any] = None
+    telemetry: Optional[TEL.TelemetryConfig] = None
 
 
 def resolve_task(cfg: FleetConfig) -> TASK.FleetTask:
@@ -184,8 +197,7 @@ def resolve_geometry(cfg: FleetConfig):
 
 
 def _check_supported(cfg: FleetConfig, mode: str) -> None:
-    """Raise for invalid configurations (``ValueError``) and for telemetry,
-    which the port does not carry yet (``NotImplementedError``)."""
+    """Raise ``ValueError`` for invalid configurations."""
     if mode not in ("sync", "async"):
         raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
     if cfg.kernel not in KERNELS:
@@ -205,10 +217,6 @@ def _check_supported(cfg: FleetConfig, mode: str) -> None:
                                               TOPO.HexInterference)):
         raise ValueError(f"geometry must be OrthogonalCells or "
                          f"HexInterference, got {type(cfg.geometry).__name__}")
-    if cfg.telemetry is not None:
-        raise NotImplementedError(
-            "not ported yet: telemetry (6g) — see ROADMAP.md Queue A, item "
-            "6 (the rest of the engine)")
 
 
 @dataclasses.dataclass
@@ -230,7 +238,7 @@ class FleetResult:
     wall_clock: np.ndarray = None  # (rounds,) cumulative simulated time, s
     staleness: np.ndarray = None   # (rounds,) mean merge age, versions
     mode: str = "sync"
-    telemetry: Optional[dict] = None
+    telemetry: Optional[dict] = None  # summaries without the tel_ prefix
 
 
 class RoundControl(NamedTuple):
@@ -242,6 +250,8 @@ class RoundControl(NamedTuple):
     sol: SOLVER.CellSolution
     t_client: torch.Tensor   # (C, I) downlink + compute + uplink, s
     m_round: torch.Tensor    # (C,) scheduled-subset Eq.-(11) coefficient
+    # (C, I) realized uplink SINR in dB, with telemetry only
+    sinr_db: Optional[torch.Tensor] = None
     # (C, m) scheduled client indices, ascending per cell, on the cohort
     # path; None on the full-fleet path
     cohort: Optional[torch.Tensor] = None
@@ -605,7 +615,8 @@ def _solve_cells_chunked(chunk: int, h_up, num_samples, cpu_hz, tx_power,
                                            mask, cap))
 
 
-def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
+def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation,
+                     solve_fn=None):
     """One draw's control pass: channel -> schedule -> Algorithm 1 ->
     realized latencies -> straggler and packet draws.
 
@@ -615,20 +626,26 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
     fill the full solve gives non-participants (rho = 0, B = 0, q = 0).
     Under interference the whole fleet is solved, under the mask, inside
     the fixed point, and the realized uplink rates price its converged
-    PSD."""
+    PSD.  ``solve_fn(h_up, mask, m_round, cap, interference)`` (a
+    ``CellSolution`` of the whole fleet on the run's device) replaces the
+    solver, as in the reference; every draw and latency term stays the
+    engine's own.  With telemetry the pass also computes the realized
+    uplink SINR (no extra draw) and the fixed point's residuals."""
     w = cfg.wireless
     n0, b_hz = w.noise_psd_w_per_hz, w.bandwidth_hz
     geo = resolve_geometry(cfg)
     sched = cfg.schedule
     sm = cfg.smoothness
     use_cohort = _cohort_enabled(cfg)
+    tcfg = cfg.telemetry
     solve_kw = dict(
         bandwidth_hz=b_hz, noise_psd=n0, waterfall_m0=w.waterfall_m0,
         model_bits=w.model_bits, cycles_per_sample=w.cycles_per_sample,
         weight=cfg.weight, solver=cfg.solver)
 
     def control(draws: RoundDraws) -> RoundControl:
-        chan = geo.round_channel(draws, pop, cfg.topology)
+        with torch.profiler.record_function("fleet.channel"):
+            chan = geo.round_channel(draws, pop, cfg.topology)
         h_up, h_down = chan.h_up, chan.h_down
         mask, cohort = SCHED.participation_cohort(
             sched, pop.num_samples, draws.gumbel, h_up.dtype)
@@ -648,27 +665,8 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
             cap = torch.clamp_min(sched.round_deadline_s
                                   - w.aggregation_latency_s - t_d[..., 0], 0.0)
 
-        clients = (h_up, pop.num_samples, pop.cpu_hz, pop.tx_power,
-                   pop.max_prune, mask)
-        if chan.interference is not None:
-            sol = SOLVER.solve_fleet(*clients[:5], m_round, mask, cap,
-                                     interference=chan.interference,
-                                     **solve_kw)
-        else:
-            gathered = cohort is not None and cohort.shape[-1] < mask.shape[-1]
-            if gathered:
-                clients = tuple(torch.take_along_dim(a, cohort, dim=-1)
-                                for a in clients)
-            *clients, solve_mask = clients
-            sol = _solve_cells_chunked(cfg.control_chunk, *clients, m_round,
-                                       solve_mask, cap, **solve_kw)
-            if gathered:
-                def scatter(v):
-                    return torch.zeros_like(mask, dtype=v.dtype).scatter(
-                        -1, cohort, v)
-                sol = sol._replace(prune=scatter(sol.prune),
-                                   bandwidth=scatter(sol.bandwidth),
-                                   per=scatter(sol.per))
+        with torch.profiler.record_function("fleet.solve"):
+            sol = solve(h_up, mask, m_round, cap, cohort, chan.interference)
 
         i_psd = 0.0 if sol.interference_psd is None \
             else sol.interference_psd[:, None]
@@ -678,12 +676,43 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation):
                              interference_psd=i_psd)
         t_u = CF.upload_latency(sol.prune, w.model_bits, r_u)
         t_client = t_d + t_c + t_u
+        sinr_db = None
+        if tcfg is not None:
+            sinr_db = 10.0 * torch.log10(CF.uplink_sinr(
+                sol.bandwidth, pop.tx_power, h_up, n0,
+                interference_psd=i_psd))
 
         strag = SCHED.straggler_mask(sched, draws.u_strag)
         arrivals = (draws.u_arr >= sol.per).to(h_up.dtype)
         return RoundControl(mask=mask, strag=strag, arrivals=arrivals,
                             sol=sol, t_client=t_client, m_round=m_round,
-                            cohort=cohort)
+                            sinr_db=sinr_db, cohort=cohort)
+
+    def solve(h_up, mask, m_round, cap, cohort, interference
+              ) -> SOLVER.CellSolution:
+        if solve_fn is not None:
+            return solve_fn(h_up, mask, m_round, cap, interference)
+        clients = (h_up, pop.num_samples, pop.cpu_hz, pop.tx_power,
+                   pop.max_prune, mask)
+        if interference is not None:
+            return SOLVER.solve_fleet(
+                *clients[:5], m_round, mask, cap, interference=interference,
+                diagnostics=tcfg is not None and tcfg.solver, **solve_kw)
+        gathered = cohort is not None and cohort.shape[-1] < mask.shape[-1]
+        if gathered:
+            clients = tuple(torch.take_along_dim(a, cohort, dim=-1)
+                            for a in clients)
+        *clients, solve_mask = clients
+        sol = _solve_cells_chunked(cfg.control_chunk, *clients, m_round,
+                                   solve_mask, cap, **solve_kw)
+        if not gathered:
+            return sol
+
+        def scatter(v):
+            return torch.zeros_like(mask, dtype=v.dtype).scatter(-1, cohort, v)
+        return sol._replace(prune=scatter(sol.prune),
+                            bandwidth=scatter(sol.bandwidth),
+                            per=scatter(sol.per))
 
     return control
 
@@ -705,7 +734,8 @@ def _round_activity(cfg: FleetConfig, pop: TOPO.ClientPopulation,
 
 def _round_metrics(cfg: FleetConfig, pop: TOPO.ClientPopulation,
                    ctl: RoundControl, active, arrivals, mean_loss):
-    """The round's metric dict (minus task eval) and the effective PER."""
+    """The round's metric dict (minus task eval, with the control pass's
+    telemetry) and the effective PER."""
     w = cfg.wireless
     mask, sol, t_client = ctl.mask, ctl.sol, ctl.t_client
     makespan = torch.where(mask > 0, t_client, -np.inf).amax(dim=-1) \
@@ -726,7 +756,27 @@ def _round_metrics(cfg: FleetConfig, pop: TOPO.ClientPopulation,
         "bandwidth_util": torch.sum(sol.bandwidth, dim=-1) / w.bandwidth_hz,
         "learning_cost": learning,
     }
+    if cfg.telemetry is not None:
+        metrics.update(TEL.control_summaries(
+            cfg.telemetry, sol, t_client, ctl.sinr_db, w.bandwidth_hz))
     return metrics, q_eff
+
+
+def _grad_telemetry(tcfg: TEL.TelemetryConfig, sq_norm: torch.Tensor,
+                    rho: torch.Tensor, sched: torch.Tensor) -> dict:
+    """``tcfg.gradients``'s summaries: the aggregated step's norm (from
+    its square ``sq_norm``) and the mean of 1 - rho over the 0/1
+    schedule ``sched``."""
+    n_sched = torch.clamp_min(torch.sum(sched), 1.0)
+    return TEL.grad_summaries(tcfg, sq_norm,
+                              torch.sum((1.0 - rho) * sched) / n_sched)
+
+
+def _step_sq_norm(g: PyTree, w_sum: torch.Tensor) -> torch.Tensor:
+    """Squared norm of the aggregated gradient g / sum w (1 for no
+    weight)."""
+    denom = torch.where(w_sum > 0, w_sum, 1.0)
+    return TEL.tree_sq_norm(g) / (denom * denom)
 
 
 def _sgd(params: PyTree, g_wsum: PyTree, w_sum: torch.Tensor, lr: float
@@ -754,17 +804,26 @@ def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
     """The model half of a sync round: consume a RoundControl and return
     the FedSGD update, the Theorem-1 accumulators and the metrics."""
 
+    grad_tel = cfg.telemetry is not None and cfg.telemetry.gradients
+
     def apply_round(carry, ctl: RoundControl):
         params, per_sum, prune_sum = carry
         mask, sol = ctl.mask, ctl.sol
         active, arrivals, agg_w = _round_activity(cfg, pop, ctl)
-        g_wsum, w_sum, mean_loss = _fleet_grads(task, params, sol.prune,
-                                                agg_w, mask, cfg, data,
-                                                cohort=ctl.cohort)
-        new_params = _sgd(params, g_wsum, w_sum, cfg.lr)
+        with torch.profiler.record_function("fleet.gradient"):
+            g_wsum, w_sum, mean_loss = _fleet_grads(
+                task, params, sol.prune, agg_w, mask, cfg, data,
+                cohort=ctl.cohort)
+        with torch.profiler.record_function("fleet.merge"):
+            new_params = _sgd(params, g_wsum, w_sum, cfg.lr)
         metrics, q_eff = _round_metrics(cfg, pop, ctl, active, arrivals,
                                         mean_loss)
-        metrics = _with_eval(metrics, task, state, new_params)
+        if grad_tel:
+            metrics.update(_grad_telemetry(
+                cfg.telemetry, _step_sq_norm(g_wsum, w_sum), sol.prune,
+                mask))
+        with torch.profiler.record_function("fleet.eval"):
+            metrics = _with_eval(metrics, task, state, new_params)
         return (new_params, per_sum + q_eff, prune_sum + sol.prune * mask), \
             metrics
 
@@ -805,6 +864,7 @@ def _make_two_tier_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
     c, i = cfg.topology.shape
     k_cell = torch.sum(pop.num_samples, dim=-1)
     period = cfg.cloud_period
+    grad_tel = cfg.telemetry is not None and cfg.telemetry.gradients
 
     def apply_round(carry, ctl: RoundControl):
         edge, acc_w, per_sum, prune_sum, r = carry
@@ -816,17 +876,20 @@ def _make_two_tier_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
                                    for a in (rho, agg_w, sched_w))
             flat = torch.arange(c, device=rho.device)[:, None] * i \
                 + ctl.cohort
-        cells, w_sums, loss_sums, loss_ws = [], [], [], []
-        for cell in range(c):
-            theta = pruning.tree_map(lambda a: a[cell], edge)
-            batch = (data.block(cell * i, (cell + 1) * i) if flat is None
-                     else data.take(flat[cell]))
-            g, losses = _grads_fn(task, theta, cfg)(rho[cell], batch,
-                                                    agg_w[cell])
-            w_sums.append(torch.sum(agg_w[cell]))
-            cells.append(_sgd(theta, g, w_sums[-1], cfg.lr))
-            loss_sums.append(torch.sum(losses * sched_w[cell]))
-            loss_ws.append(torch.sum(sched_w[cell]))
+        cells, w_sums, loss_sums, loss_ws, sq_norms = [], [], [], [], []
+        with torch.profiler.record_function("fleet.gradient"):
+            for cell in range(c):
+                theta = pruning.tree_map(lambda a: a[cell], edge)
+                batch = (data.block(cell * i, (cell + 1) * i) if flat is None
+                         else data.take(flat[cell]))
+                g, losses = _grads_fn(task, theta, cfg)(rho[cell], batch,
+                                                        agg_w[cell])
+                w_sums.append(torch.sum(agg_w[cell]))
+                cells.append(_sgd(theta, g, w_sums[-1], cfg.lr))
+                loss_sums.append(torch.sum(losses * sched_w[cell]))
+                loss_ws.append(torch.sum(sched_w[cell]))
+                if grad_tel:   # this cell's edge-step norm^2
+                    sq_norms.append(_step_sq_norm(g, w_sums[-1]))
         edge2 = pruning.tree_map(lambda *xs: torch.stack(xs), *cells)
         w_sums, loss_sums, loss_ws = (torch.stack(v) for v in
                                       (w_sums, loss_sums, loss_ws))
@@ -834,16 +897,22 @@ def _make_two_tier_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
             torch.sum(loss_ws), 1.0)
 
         acc2 = acc_w + w_sums
-        cloud = _cloud_view(edge2, acc2, k_cell)
         merge = r % period == period - 1
-        if merge:
-            edge2, acc2 = _broadcast(cloud, edge2), torch.zeros_like(acc2)
+        with torch.profiler.record_function("fleet.cloud_merge"):
+            cloud = _cloud_view(edge2, acc2, k_cell)
+            if merge:
+                edge2, acc2 = _broadcast(cloud, edge2), torch.zeros_like(acc2)
         metrics, q_eff = _round_metrics(cfg, pop, ctl, active, arrivals,
                                         mean_loss)
         if merge:
             metrics["round_latency"] = metrics["round_latency"] \
                 + cfg.wireless.backhaul_s
-        metrics = _with_eval(metrics, task, state, cloud)
+        if grad_tel:
+            metrics.update(_grad_telemetry(
+                cfg.telemetry, torch.sum(torch.stack(sq_norms)),
+                ctl.sol.prune, ctl.mask))
+        with torch.profiler.record_function("fleet.eval"):
+            metrics = _with_eval(metrics, task, state, cloud)
         return (edge2, acc2, per_sum + q_eff,
                 prune_sum + ctl.sol.prune * ctl.mask, r + 1), metrics
 
@@ -1031,6 +1100,8 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
     dtype = k_all.dtype
     two_tier = cfg.cloud_period >= 1
     cells = torch.arange(c_cells, device=k_all.device)
+    tcfg = cfg.telemetry
+    grad_tel = tcfg is not None and tcfg.gradients
 
     def step(carry, ctl: RoundControl):
         hist, head, version, now, st = carry[:5]
@@ -1060,9 +1131,10 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
             edge, acc_w = carry[5:]
             onehot = (cells[:, None] == (sel // i_per_cell)[None, :]
                       ).to(dtype)                                  # (C, K)
-            num, losses = _buffer_cell_sums(task, cfg, hist, head, tau,
-                                            batch, gather(st.rho), w_merge,
-                                            onehot)
+            with torch.profiler.record_function("fleet.gradient"):
+                num, losses = _buffer_cell_sums(
+                    task, cfg, hist, head, tau, batch, gather(st.rho),
+                    w_merge, onehot)
             den = torch.sum(onehot * w_merge, dim=-1)              # (C,)
 
             def edge_step(e, g):
@@ -1071,20 +1143,26 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
                 return torch.where((den > 0).reshape(shape),
                                    (e - cfg.lr * g / d).to(e.dtype), e)
 
-            edge2 = pruning.tree_map(edge_step, edge, num)
-            acc2 = acc_w + den
-            cloud = _cloud_view(edge2, acc2, k_cell)
-            new_params, eval_params = params, cloud
-            if (version + 1) % cfg.cloud_period == 0:
-                edge2, acc2 = _broadcast(cloud, edge2), torch.zeros_like(acc2)
-                new_params = pruning.tree_map(lambda p, cl: cl.to(p.dtype),
-                                              params, cloud)
-                now2 = now2 + w.backhaul_s
+            with torch.profiler.record_function("fleet.cloud_merge"):
+                edge2 = pruning.tree_map(edge_step, edge, num)
+                acc2 = acc_w + den
+                cloud = _cloud_view(edge2, acc2, k_cell)
+                new_params, eval_params = params, cloud
+                if (version + 1) % cfg.cloud_period == 0:
+                    edge2 = _broadcast(cloud, edge2)
+                    acc2 = torch.zeros_like(acc2)
+                    new_params = pruning.tree_map(
+                        lambda p, cl: cl.to(p.dtype), params, cloud)
+                    now2 = now2 + w.backhaul_s
             tail = (edge2, acc2)
+            if grad_tel:   # the buffer's update: every cell's sum, added
+                g_wsum = pruning.tree_map(lambda g: torch.sum(g, dim=0), num)
         else:
-            g_wsum, losses = _buffer_grads(task, cfg, hist, head, tau, batch,
-                                           gather(st.rho), w_merge)
-            new_params = _sgd(params, g_wsum, torch.sum(w_merge), cfg.lr)
+            with torch.profiler.record_function("fleet.gradient"):
+                g_wsum, losses = _buffer_grads(task, cfg, hist, head, tau,
+                                               batch, gather(st.rho), w_merge)
+            with torch.profiler.record_function("fleet.merge"):
+                new_params = _sgd(params, g_wsum, torch.sum(w_merge), cfg.lr)
             eval_params = new_params
         version2, head2 = version + 1, (head + 1) % hist_len
         hist2 = pruning.tree_map(
@@ -1115,9 +1193,21 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
             "staleness": torch.mean(tau.to(dtype)),
             "sim_time": now2,
         }
-        metrics = _with_eval(metrics, task, state, eval_params)
+        if tcfg is not None:
+            metrics.update(TEL.staleness_summary(tcfg, tau,
+                                                 acfg.max_staleness, dtype))
+        if grad_tel:
+            metrics.update(_grad_telemetry(
+                tcfg, _step_sq_norm(g_wsum, torch.sum(w_merge)), st.rho,
+                sched_coh))
+        with torch.profiler.record_function("fleet.eval"):
+            metrics = _with_eval(metrics, task, state, eval_params)
 
-        # 5. the merged clients download version2 and start again
+        # 5. the merged clients download version2 and start again; their
+        # control draw is the event's control telemetry
+        if tcfg is not None:
+            metrics.update(TEL.control_summaries(
+                tcfg, ctl.sol, ctl.t_client, ctl.sinr_db, w.bandwidth_hz))
         st2 = _start_state(ctl, now2, version2, st, coh, cfg)._replace(
             per_sum=st.per_sum + torch.where(coh > 0, q_eff, 1.0),
             prune_sum=st.prune_sum + torch.where(coh > 0, st.rho * st.sched,
@@ -1138,7 +1228,8 @@ class Simulation:
     ``finalize`` turns the output into a ``FleetResult``.  A step is
     ``apply(carry, control(r))``: the control pass depends on the draws
     alone, so it can be timed apart.  ``data`` holds the clients' batches
-    (cached or streamed)."""
+    (cached or streamed); ``solve_fn`` replaces the control pass's solver
+    (``_make_control_fn``)."""
 
     cfg: FleetConfig
     task: TASK.FleetTask
@@ -1148,10 +1239,12 @@ class Simulation:
     data: ClientData
     draws: Any
     mode: str = "sync"
+    solve_fn: Any = None
 
     def __post_init__(self):
         self.two_tier = self.cfg.cloud_period >= 1
-        self._control = _make_control_fn(self.cfg, self.population)
+        self._control = _make_control_fn(self.cfg, self.population,
+                                         solve_fn=self.solve_fn)
         if self.mode == "async":
             make = _make_async_step
         elif self.two_tier:
@@ -1214,9 +1307,9 @@ class Simulation:
 
     def finalize(self, carry, metrics) -> FleetResult:
         """Host-side FleetResult, with the Theorem-1 bound on the realized
-        (q, rho) averages.  Two-tier ``params`` is the cloud view of the
-        final edge models (the last cloud merge where the run ended on
-        one)."""
+        (q, rho) averages and the telemetry (keyed without its prefix, or
+        None).  Two-tier ``params`` is the cloud view of the final edge
+        models (the last cloud merge where the run ended on one)."""
         cfg = self.cfg
 
         def host(t):
@@ -1237,7 +1330,7 @@ class Simulation:
                                 host(self.population.num_samples))
         else:
             params = pruning.tree_map(host, params)
-        out = {k: host(v) for k, v in metrics.items()}
+        out, tel = TEL.split_metrics({k: host(v) for k, v in metrics.items()})
         avg_per = host(per_sum).reshape(-1) / cfg.rounds
         avg_prune = host(prune_sum).reshape(-1) / cfg.rounds
         bound = ConvergenceBound(
@@ -1258,6 +1351,7 @@ class Simulation:
             wall_clock=out.get("sim_time", np.cumsum(latencies)),
             staleness=out.get("staleness", np.zeros_like(latencies)),
             mode=self.mode,
+            telemetry=tel,
         )
 
 
@@ -1326,12 +1420,32 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
 
 def run_fleet(cfg: FleetConfig, mode: str = "sync", progress: bool = False,
               *, device=None, dtype: torch.dtype = torch.float32,
-              draws=None, start: Optional[SimStart] = None) -> FleetResult:
+              draws=None, start: Optional[SimStart] = None,
+              sink: Optional[TEL.TelemetrySink] = None,
+              recorder: Optional[TEL.SpanRecorder] = None) -> FleetResult:
     """Simulate ``cfg.rounds`` sync rounds or async events (see
-    ``build_simulation`` for the arguments) and return a ``FleetResult``."""
-    sim = build_simulation(cfg, mode, device=device, dtype=dtype,
-                           draws=draws, start=start)
-    result = sim.finalize(*sim.simulate(sim.params))
+    ``build_simulation`` for the arguments) and return a ``FleetResult``.
+
+    ``sink`` (a ``telemetry.TelemetrySink``) receives the run's header and
+    per-round records after the run (it is not closed); ``recorder`` (a
+    ``telemetry.SpanRecorder``) records the ``fleet.build``,
+    ``fleet.simulate`` (to the device's last op) and ``fleet.finalize``
+    spans."""
+    rec = recorder if recorder is not None else TEL.SpanRecorder()
+    with rec.span("fleet.build", mode=mode,
+                  clients=cfg.topology.num_clients):
+        sim = build_simulation(cfg, mode, device=device, dtype=dtype,
+                               draws=draws, start=start)
+    with rec.span("fleet.simulate", rounds=cfg.rounds):
+        out = sim.simulate(sim.params)
+        if sim.population.pathloss.is_cuda:
+            torch.cuda.synchronize(sim.population.pathloss.device)
+    with rec.span("fleet.finalize"):
+        result = sim.finalize(*out)
+    if sink is not None:
+        TEL.emit_result(result, sink, meta={
+            "clients": cfg.topology.num_clients, "kernel": cfg.kernel,
+            "cloud_period": cfg.cloud_period})
     if progress:
         shown = sorted(set(range(0, cfg.rounds, max(cfg.rounds // 10, 1)))
                        | {cfg.rounds - 1})

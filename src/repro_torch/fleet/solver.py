@@ -1,8 +1,7 @@
 """Algorithm 1 for every cell at once: the batched trade-off solver, with
 the damped inter-cell interference fixed point.
 
-The port of ``repro.fleet.solver`` (its ``diagnostics`` residual
-trajectory comes with the telemetry module).  The reference vmaps a
+The port of ``repro.fleet.solver``.  The reference vmaps a
 per-cell ``lax.while_loop``; under vmap JAX steps the whole batch while
 any lane is live and freezes each lane whose own condition is false,
 whether it converged or hit ``max_iters``.  Here the
@@ -18,7 +17,9 @@ fixed-point iteration solves all cells at effective noise N0 + I_c,
 recomputes I from the allocation (``topology.interference_psd``) and
 damps, I <- I + d (F(I) - I), from I = 0, freezing when the iterate moves
 by at most ``fp_rtol (N0 + max I)`` or after ``fp_iters`` iterations.
-Like the alternations, each iteration's freeze test is a host sync.
+Like the alternations, each iteration's freeze test is a host sync.  With
+``diagnostics`` each iteration's residual is written into a preallocated
+device tensor (``CellSolution.fp_residuals``), which adds no sync.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ class CellSolution(NamedTuple):
     interference_psd: Optional[torch.Tensor] = None   # (C,)
     fp_iterations: Optional[torch.Tensor] = None      # scalar int32
     fp_residual: Optional[torch.Tensor] = None        # scalar
+    fp_residuals: Optional[torch.Tensor] = None       # (fp_iters,)
 
 
 def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
@@ -74,8 +76,8 @@ def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
                 bandwidth_hz: float, noise_psd: float, waterfall_m0: float,
                 model_bits: float, cycles_per_sample: float, weight: float,
                 solver: SolverConfig = SolverConfig(),
-                interference: Optional[TOPO.InterferenceGraph] = None
-                ) -> CellSolution:
+                interference: Optional[TOPO.InterferenceGraph] = None,
+                diagnostics: bool = False) -> CellSolution:
     """Algorithm 1 over every cell of a (C, I) fleet.
 
     Array args are (C, I) except ``m`` (1/samples) and ``deadline_cap``
@@ -84,7 +86,8 @@ def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
     power W, ``weight`` the trade-off lambda.  Masked-out clients get rho
     = 0 and B = 0 and drop out of the vertex walk and cost.  With
     ``interference`` the cells solve inside the damped fixed point (see
-    the module docstring).
+    the module docstring); ``diagnostics`` then also returns the
+    per-iteration residuals (``fp_residuals``, shape ``(fp_iters,)``).
     """
     if mask is None:
         mask = torch.ones_like(h_up)
@@ -101,6 +104,8 @@ def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
     i_solved, it, err = i_cur, 0, torch.full((), float("inf"),
                                              dtype=h_up.dtype,
                                              device=h_up.device)
+    resid = torch.full((solver.fp_iters,), float("nan"), dtype=h_up.dtype,
+                       device=h_up.device) if diagnostics else None
     sol = None
     while it < solver.fp_iters:
         sol = _solve(*args, noise=(noise_psd + i_cur)[:, None], **kw)
@@ -108,6 +113,8 @@ def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
                                       bandwidth_hz)
         i_new = i_cur + solver.fp_damping * (i_raw - i_cur)
         err = torch.amax(torch.abs(i_new - i_cur))
+        if resid is not None:
+            resid[it] = err
         done = bool(err <= solver.fp_rtol * (noise_psd + torch.amax(i_cur)))
         i_solved, i_cur, it = i_cur, i_new, it + 1
         if done:
@@ -118,7 +125,7 @@ def solve_fleet(h_up: torch.Tensor, num_samples: torch.Tensor,
     return sol._replace(
         interference_psd=i_solved,
         fp_iterations=torch.tensor(it, dtype=torch.int32, device=h_up.device),
-        fp_residual=err)
+        fp_residual=err, fp_residuals=resid)
 
 
 def solve_cell(h_up: torch.Tensor, num_samples: torch.Tensor,

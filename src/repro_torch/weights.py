@@ -3,7 +3,8 @@
 Converters from numpy copies of the JAX package's objects (or any arrays
 of the same layout) into the port's tensors, and back.  They are what
 lets a test start both packages from the same model, fleet, data and
-per-round draws.  Integer arrays (labels) become int64; float arrays take
+per-round draws, and the §V ``run`` from the same params and packet
+uniforms.  Integer arrays (labels) become int64; float arrays take
 ``dtype``.  Like the entry points, ``device=None`` means the card
 (``"cuda"``); pass ``device="cpu"`` for the CPU.
 """
@@ -16,14 +17,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.federated.system import RunStart
 from repro_torch.fleet.engine import RoundDraws, SimStart
 from repro_torch.fleet.topology import (POPULATION_ARRAYS, ClientPopulation,
                                         HexState)
 from repro_torch.serve.export import PrunedBundle
 
 __all__ = ["tensor", "tree_from_numpy", "population_from_numpy",
-           "round_draws_from_numpy", "start_from_numpy", "to_numpy",
-           "bundle_from_numpy"]
+           "round_draws_from_numpy", "start_from_numpy",
+           "run_start_from_numpy", "to_numpy", "bundle_from_numpy"]
 
 
 def tensor(a, dtype: torch.dtype = torch.float32, device=None
@@ -92,6 +94,16 @@ def start_from_numpy(params: Mapping, task_state: Mapping,
     the run draws them from the task state)."""
     return SimStart(*(None if t is None else tree_from_numpy(t, dtype, device)
                       for t in (params, task_state, batches)))
+
+
+def run_start_from_numpy(params: Mapping, uniforms,
+                         dtype: torch.dtype = torch.float32,
+                         device=None) -> RunStart:
+    """The §V ``run``'s draws -> ``RunStart``: the MLP's initial params
+    (``{"layer{i}": {"w", "b"}}``) and each round's packet uniforms,
+    (rounds, num_clients), both in ``dtype``."""
+    return RunStart(tree_from_numpy(params, dtype, device),
+                    tensor(uniforms, dtype, device))
 
 
 def bundle_from_numpy(bundle: Any, dtype: torch.dtype = torch.float32,

@@ -255,16 +255,6 @@ def test_default_config_runs_the_reference_kernel_on_cpu():
     assert res.losses[-1] < res.losses[0]
 
 
-@pytest.mark.parametrize("change", [dict(telemetry={"gradients": True})])
-def test_unported_configs_raise(change):
-    """What the port does not carry yet raises, naming its Queue A item
-    (6g: telemetry)."""
-    _, tcfg = _configs({})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md.*6|6.*ROADMAP"):
-        TENG.build_simulation(dataclasses.replace(tcfg, **change),
-                              device="cpu")
-
-
 def test_unknown_mask_kind_raises():
     _, tcfg = _configs({})
     with pytest.raises(ValueError, match="mask_kind"):

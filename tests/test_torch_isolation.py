@@ -49,5 +49,8 @@ def test_package_covers_the_slice_modules():
                 "models.model", "kernels.block_sparse_matmul",
                 "kernels.decode_attention", "kernels.flash_prefill",
                 "kernels.ops", "checkpoint", "serve", "serve.export",
-                "serve.sparse", "serve.model", "serve.engine"}
+                "serve.sparse", "serve.model", "serve.engine",
+                "fleet.telemetry", "core.tradeoff", "data", "data.synthetic",
+                "federated", "federated.client", "federated.server",
+                "federated.system"}
     assert {f"repro_torch.{m}" for m in expected} <= set(_modules())
