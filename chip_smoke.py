@@ -25,9 +25,11 @@ Phases (any failure exits non-zero and prints no result line):
                prefill also at G = 4 / hd = 64 and G = 7 / hd = 128 with
                ragged t_valid, windows, a dead head; the tile norms in
                both regimes (the fleet's three layers, and smollm-135m's
-               bundle leaves in bfloat16, ``bundle_*``) and at block 16 on
-               the DNN's ragged leaves (the §V run's ranking,
-               ``block16_ms``): within 1e-4 of the
+               bundle leaves in bfloat16, ``bundle_*``, and the same
+               leaves in float32, phase 15b's ranking every round,
+               ``smollm_f32_*``) and at block 16 on the DNN's ragged
+               leaves (the §V run's ranking, ``block16_ms``): within 1e-4
+               of the
                plain version, bitwise alone / grouped / rerun, timed
                beside an einsum, the byte bound and an empty launch's
                device time (``launch_floor_ms``);
@@ -44,7 +46,11 @@ Phases (any failure exits non-zero and prints no result line):
                10-12, a sync and a hex fleet with telemetry (masses
                exact, bin counts equal but for values within 1e-5 of an
                edge, which the line names), the §V ``run`` at 5 UEs with
-               magnitude and block-16 masks, and ``run_fleet_reference``;
+               magnitude and block-16 masks, ``run_fleet_reference``, and
+               the generic gradient path's tasks: a LinearRegressionTask
+               fleet (2 x 4 clients, 3 rounds) and a TransformerTask fleet
+               at the smoke width (2 x 3 clients, 2 rounds), each from
+               the task's own draws on the CPU carried as numpy;
   6. serve   — smollm-135m at full width (random weights from a seed,
                bfloat16, pruned at rho = 0.5 on its tile grid) through
                ServeEngine: 64 requests x (32 prompt + 32 new tokens) on 32
@@ -110,14 +116,31 @@ Phases (any failure exits non-zero and prints no result line):
                one tile-norm launch a round, control and apply ms, every
                cell's deadline within 1e-3 of the device solver's; (c)
                run_any on the card (5 clients an FLResult, 128 a
-               FleetResult).
+               FleetResult);
+ 15. tasks   — (a) LinearRegressionTask at the slice (10,000 clients),
+               kernel="fused" (the generic path: one tile-norm ranking a
+               round, masked_scan_grads, no fused-kernel launch), 5
+               rounds: falling loss, rising R^2, rerun bitwise; (b)
+               smollm-135m at full width in float32 trained by the fleet
+               (TransformerTask, 4 x 8 clients, sequences of 16, batch 2,
+               3 rounds): finite losses, one grouped ranking of its 10
+               leaves a round, no fused launch, the wireless model pricing
+               32 x param_count bits, rerun bitwise, peak device memory, a
+               profiled round and the generic path's time a client; (c)
+               15b's model through export_from_result (its last round's
+               mean rate), load_pruned and ServeEngine: 8 requests x (16 +
+               16) on 8 slots and on 4 (tokens equal) and in wave mode,
+               with block-sparse matmul, flash prefill and decode
+               attention launches.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
 bitwise.  The line before the last is the kernels JSON (the fleet rows
-also carry the launches of phases 7-14: ``telemetry_launches`` phase
-13a's, ``host_reference_launches`` phase 14b's, and row 2
-``fl_run_launches`` phase 14a's); the last is the device JSON.
+also carry the launches of phases 7-15: ``telemetry_launches`` phase
+13a's, ``host_reference_launches`` phase 14b's, ``linreg_launches`` and
+``transformer_launches`` phase 15a's and 15b's, and row 2
+``fl_run_launches`` phase 14a's; the serving rows and row 2 carry
+``exported_serve_launches``, phase 15c's); the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -148,8 +171,16 @@ ANNOTATIONS = frozenset(PHASES + ("fleet.build", "fleet.simulate",
                                   "fleet.finalize"))
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(msg: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    log(f"{msg} (t = {time.perf_counter() - T0:.1f} s)")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -206,15 +237,17 @@ def rel_err(a, b) -> tuple[float, float]:
 # Phase 3: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def smollm_ranking() -> tuple[list, list]:
+def smollm_ranking(param_dtype: str = "bfloat16") -> tuple[list, list]:
     """smollm-135m's prunable leaves at full width, drawn on the card from
-    a seed in the config's parameter dtype, and their tile grid: what
-    ``make_bundle`` ranks in phase 6."""
+    a seed in ``param_dtype``, and their tile grid: what ``make_bundle``
+    ranks in phase 6 (bfloat16, the config's), and what phase 15b's
+    fleet ranks every round (float32)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import pruning
     from repro_torch.fleet.task import TransformerTask
-    task = TransformerTask(arch=get_config("smollm-135m"))
+    task = TransformerTask(arch=get_config("smollm-135m").replace(
+        param_dtype=param_dtype))
     params = task.init_params(
         torch.Generator(device="cuda").manual_seed(SERVE_SEED))
     pairs = [(leaf, blk) for leaf, blk in
@@ -311,11 +344,17 @@ def check_tile_norms(params, card: str) -> dict:
     bundle = norms_regime("smollm-135m bundle (auto_tile_grid)", leaves,
                           blocks, 20, 3, floor_ms, card)
     del leaves
+    leaves, blocks = smollm_ranking("float32")
+    f32 = norms_regime("smollm-135m float32 (phase 15b's ranking)", leaves,
+                       blocks, 20, 3, floor_ms, card)
+    del leaves
     row = dict(name="tile_norms", route="cuda",
                source="src/repro_torch/kernels/csrc/block_norms.cu",
                replaces="src/repro/kernels/block_norms.py:24", **fleet)
     row["max_abs_err"] = max(fleet["max_abs_err"], bundle["max_abs_err"],
-                             dnn["max_abs_err"])
+                             dnn["max_abs_err"], f32["max_abs_err"])
+    row.update({f"smollm_f32_{k}": v for k, v in f32.items()
+                if k != "max_abs_err"})
     row["block16_ms"] = dnn["ms"]
     row["launch_floor_ms"] = floor_ms
     row.update({f"bundle_{k}": v for k, v in bundle.items()
@@ -1188,6 +1227,58 @@ def card_vs_cpu_paths(card: str) -> None:
                 telemetry=TelemetryConfig())
     card_vs_cpu_run(card)
     card_vs_cpu_fleet_reference(card)
+    card_vs_cpu_tasks(card)
+
+
+def card_vs_cpu_tasks(card: str) -> None:
+    """The generic gradient path's tasks from the same numpy population,
+    draws, params and task state (drawn by the task on the CPU from a
+    seed) on the CPU and on the card: a linreg fleet (2 x 4 clients, 3
+    rounds) and a transformer fleet at the smoke width (2 x 3 clients, 2
+    rounds), losses and params within TOL, one ranking a round and no
+    fused call on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import weights
+    from repro_torch.core import pruning
+    from repro_torch.fleet import (FleetConfig, FleetTopology, InjectedDraws,
+                                   LinearRegressionTask, TransformerTask,
+                                   run_fleet)
+    cases = (("linreg", LinearRegressionTask(noise=0.05), (2, 4), 3, 0.1),
+             ("transformer, smoke width", TransformerTask(), (2, 3), 2, 0.5))
+    for what, task, (cells, per_cell), rounds, lr in cases:
+        cfg = FleetConfig(task=task, topology=FleetTopology(cells, per_cell),
+                          kernel="fused", rounds=rounds, lr=lr)
+        pop, draws, *_ = numpy_fleet(cells, per_cell, rounds)
+        gen = torch.Generator().manual_seed(5)
+        state = weights.to_numpy(task.build(gen, torch.float32, "cpu"))
+        params = weights.to_numpy(task.init_params(gen, torch.float32, "cpu"))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            src = InjectedDraws(weights.population_from_numpy(pop, device=dev),
+                                [weights.round_draws_from_numpy(**d,
+                                                                device=dev)
+                                 for d in draws])
+            zero_fleet_counts()
+            out[dev] = run_fleet(cfg, device=dev, draws=src,
+                                 start=weights.start_from_numpy(
+                                     params, state, device=dev))
+        counts = fleet_counts()
+        a, b = out["cuda"], out["cpu"]
+        loss_rel = float(np.max(np.abs(a.losses - b.losses)
+                                / np.abs(b.losses)))
+        par_rel = max(float(np.max(np.abs(x - y)))
+                      / max(float(np.max(np.abs(y))), 1e-30)
+                      for x, y in zip(pruning.flatten(a.params),
+                                      pruning.flatten(b.params)))
+        log(f"  [{what}, {cells}x{per_cell} clients, {rounds} rounds] losses "
+            f"card {a.losses.tolist()} cpu {b.losses.tolist()}; loss rel err "
+            f"{loss_rel:.3e}, params rel err {par_rel:.3e} (tol {TOL}); card "
+            f"launches {json.dumps(counts)} [{card}]")
+        if loss_rel > TOL or par_rel > TOL:
+            raise AssertionError(f"card and CPU runs disagree ({what})")
+        if counts != {"fleet_fused_grads": 0, "tile_norms": rounds}:
+            raise AssertionError(f"{what}: the card launched {counts}")
 
 
 def card_vs_cpu_run(card: str) -> None:
@@ -2021,6 +2112,172 @@ def fmt_walls(walls) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the generic gradient path's tasks, and the fleet-trained model
+# served
+# ---------------------------------------------------------------------------
+
+LINREG_ROUNDS = 5
+LM_CELLS, LM_PER_CELL, LM_ROUNDS = 4, 8, 3
+LM_PROMPTS, LM_PROMPT, LM_NEW = 8, 16, 16
+
+
+def run_linreg(card: str) -> dict:
+    """Phase 15a: LinearRegressionTask at the slice's 10,000 clients,
+    kernel="fused" (the generic path), 5 rounds."""
+    import dataclasses
+    from repro_torch.fleet import LinearRegressionTask, build_simulation
+    cfg = dataclasses.replace(slice_config(rounds=LINREG_ROUNDS),
+                              task=LinearRegressionTask())
+    sim = build_simulation(cfg)
+
+    def note(r, ctl, m):
+        return f"R2={float(m['accuracy']):.5f}"
+
+    _, metrics, walls, steps, _ = drive(sim, "linreg round", card, note=note)
+    check_steps("linreg round", steps,
+                {"fleet_fused_grads": 0, "tile_norms": 1})
+    counts = fleet_counts()
+    losses = metrics["loss"].cpu().tolist()
+    r2 = metrics["accuracy"].cpu().tolist()
+    if not (losses[-1] < losses[0] and r2[-1] > r2[0]):
+        raise AssertionError(f"linreg: loss {losses}, R2 {r2}")
+    log(f"  linreg: loss {losses[0]:.5f} -> {losses[-1]:.5f}, R2 "
+        f"{r2[0]:.5f} -> {r2[-1]:.5f}; warm walls {fmt_walls(walls[1:])} "
+        f"[{card}]")
+    rerun_bitwise(cfg, "sync", losses, "linreg")
+    return counts
+
+
+def lm_task():
+    """smollm-135m at full width in float32, the fleet's transformer."""
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import TransformerTask
+    return TransformerTask(
+        arch=get_config("smollm-135m").replace(param_dtype="float32"),
+        seq_len=16, local_batch=2, pool_clients=32)
+
+
+def run_lm(card: str):
+    """Phase 15b: smollm-135m at full width trained by the fleet: 4 x 8
+    clients, kernel="fused" (the generic path over bounded client blocks),
+    3 rounds.  Returns (launch counts, the FleetResult)."""
+    import torch
+    from repro_torch.fleet import FleetConfig, FleetTopology, build_simulation
+    from repro_torch.kernels import fleet_fused as FF
+    from repro_torch.models import model as M
+    task = lm_task()
+    cfg = FleetConfig(task=task, topology=FleetTopology(LM_CELLS, LM_PER_CELL),
+                      kernel="fused", rounds=LM_ROUNDS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg)
+    torch.cuda.synchronize()
+    n_params = M.param_count(sim.params)
+    log(f"  build {time.perf_counter() - t0:.2f} s: {n_params} params "
+        f"(float32), model_bits {sim.cfg.wireless.model_bits:.6g}, "
+        f"{FF.scan_block(sim.params, LM_CELLS * LM_PER_CELL)} client(s) a "
+        f"gradient block; data "
+        f"{'streamed' if sim.data.cached is None else 'cached'}")
+    if sim.cfg.wireless.model_bits != 32.0 * n_params:
+        raise AssertionError(f"model_bits {sim.cfg.wireless.model_bits} is "
+                             f"not 32 x {n_params}")
+
+    def note(r, ctl, m):
+        return (f"acc={float(m['accuracy']):.4f} "
+                f"mean_rho={float(m['mean_prune']):.4f}")
+
+    carry, metrics, walls, steps, _ = drive(sim, "smollm round", card,
+                                            note=note)
+    check_steps("smollm round", steps,
+                {"fleet_fused_grads": 0, "tile_norms": 1})
+    counts = fleet_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  smollm-135m fleet: warm walls {fmt_walls(walls[1:])}, peak "
+        f"device memory {peak:.3f} GiB [{card}]")
+    profile_round(sim, carry, cfg.rounds - 1, card, "smollm round")
+
+    # the generic path alone (warm from the rounds): the 32 clients'
+    # gradients after one ranking
+    params = carry[0]
+    n = cfg.topology.num_clients
+    rho = torch.linspace(0.0, 0.7, n, device="cuda")
+    w = torch.ones(n, device="cuda")
+    batch = sim.data.block(0, n)
+    prep = task.kernel_prepare(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.kernel_grads(params, prep, batch, rho, w)
+    torch.cuda.synchronize()
+    per_client = (time.perf_counter() - t0) * 1e3 / n
+    log(f"  generic path (kernel_grads): {per_client:.3f} ms a client over "
+        f"{n} clients [{card}]")
+    result = sim.finalize(carry, metrics)
+    if not torch.isfinite(metrics["loss"]).all():
+        raise AssertionError(f"smollm losses {result.losses}")
+    rerun_bitwise(cfg, "sync", metrics["loss"].cpu().tolist(), "smollm")
+    del sim, carry, params, prep, batch
+    torch.cuda.empty_cache()
+    return counts, result
+
+
+def run_exported(card: str, result) -> dict:
+    """Phase 15c: 15b's trained model pruned at its last round's mean
+    rate (``export_from_result``), loaded (``load_pruned``) and served:
+    8 requests of 16 prompt tokens and 16 new, on 8 slots and on 4 (equal
+    tokens) and in wave mode.  Returns the serve kernels' launches."""
+    import tempfile
+    import numpy as np
+    from repro_torch.serve import (ServeConfig, ServeEngine, SparseModel,
+                                   export_from_result, load_pruned)
+    task = lm_task()
+    counters = serve_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = str(Path(tmp) / "smollm_fleet.npz")
+        t0 = time.perf_counter()
+        bundle = export_from_result(path, task, result)
+        t1 = time.perf_counter()
+        loaded = load_pruned(path, task)
+        t2 = time.perf_counter()
+    if loaded.rho != float(np.float32(result.mean_prune[-1])) \
+            or bundle.rho != float(result.mean_prune[-1]):
+        raise AssertionError(f"the bundle's rate {loaded.rho} is not the last "
+                             f"round's mean {result.mean_prune[-1]}")
+    log(f"  export (ranking, keeps, .npz) {t1 - t0:.2f} s, load "
+        f"{t2 - t1:.2f} s; rho {loaded.rho:.6f} (last round's mean "
+        f"{result.mean_prune[-1]:.6f}), achieved {achieved_rho(loaded):.4f}")
+    model = SparseModel(task.config(), loaded)
+    prompts = np.random.RandomState(SERVE_SEED + 3).randint(
+        0, task.config().vocab_size, (LM_PROMPTS, LM_PROMPT)).astype(np.int32)
+    tokens = {}
+    for slots in (8, 4):
+        eng = ServeEngine(model, ServeConfig(max_slots=slots,
+                                             page_len=LM_PROMPT + LM_NEW,
+                                             max_new=LM_NEW))
+        t0 = time.perf_counter()
+        tokens[slots] = eng.generate(prompts)
+        log(f"  generate on {slots} slots: {LM_PROMPTS} requests x "
+            f"({LM_PROMPT} + {LM_NEW}) in {time.perf_counter() - t0:.2f} s "
+            f"[{card}]")
+    if not np.array_equal(tokens[8], tokens[4]):
+        raise AssertionError("the exported model's tokens differ between 8 "
+                             "and 4 slots")
+    wave = ServeEngine(model, ServeConfig(
+        max_slots=8, page_len=LM_PROMPT + LM_NEW,
+        max_new=LM_NEW)).generate_prefilled(prompts)
+    same = int(sum(np.array_equal(a, b) for a, b in zip(wave, tokens[8])))
+    counts = {name: fn.launches for name, fn in counters.items()}
+    log(f"  8-slot and 4-slot tokens bitwise equal; wave mode equal on "
+        f"{same}/{LM_PROMPTS} requests; serve kernels {json.dumps(counts)}")
+    for name in ("block_sparse_matmul", "flash_prefill", "decode_attention"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched serving the export")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: serve smollm-135m
 # ---------------------------------------------------------------------------
 
@@ -2277,7 +2534,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
 
-    log("[1] device")
+    phase("[1] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2286,7 +2543,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"device count {torch.cuda.device_count()}")
 
-    log("[2] build")
+    phase("[2] build")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     reports = build.build()
@@ -2299,7 +2556,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3] kernels against their plain versions")
+    phase("[3] kernels against their plain versions")
     warm_profiler()
     from repro_torch.fleet import build_simulation
     probe = build_simulation(slice_config(rounds=1))
@@ -2311,37 +2568,42 @@ def main() -> int:
                   check_decode(card), check_prefill(card)]
     torch.cuda.empty_cache()
 
-    log("[4] main path")
+    phase("[4] main path")
     _, counts, main = run_main_path(card)
     for row in rows:
         row["launches"] = counts[row["name"]]
 
-    log("[5] whole paths, card against CPU")
+    phase("[5] whole paths, card against CPU")
     card_vs_cpu_paths(card)
 
-    log("[6] serve smollm-135m")
+    phase("[6] serve smollm-135m")
     serve_counts = run_serve(card)
     for row in serve_rows:
         row["launches"] = serve_counts[row["name"]]
     rows[1]["bundle_launches"] = serve_counts["tile_norms"]
     torch.cuda.empty_cache()
 
-    log("[7] partial participation: the cohort path")
+    phase("[7] partial participation: the cohort path")
     cohort = run_cohort(card, main)
-    log("[8] async events")
+    phase("[8] async events")
     asynced = run_async(card)
-    log("[9] the reference kernel")
+    phase("[9] the reference kernel")
     reference, reference_block = run_reference(card, main)
-    log("[10] hex cells: interference, mobility, handover")
+    phase("[10] hex cells: interference, mobility, handover")
     hexed = run_hex(card)
-    log("[11] two-tier aggregation")
+    phase("[11] two-tier aggregation")
     tier, tier_async = run_two_tier(card, main)
-    log("[12] client data: streaming and Dirichlet labels")
+    phase("[12] client data: streaming and Dirichlet labels")
     streamed, dirichlet = run_data(card)
-    log("[13] telemetry at the slice")
+    phase("[13] telemetry at the slice")
     telemetry = run_telemetry(card, main)
-    log("[14] the host reference path")
+    phase("[14] the host reference path")
     host = run_host_reference(card)
+    phase("[15] the generic gradient path: linreg, smollm-135m trained by the "
+        "fleet, and served")
+    linreg = run_linreg(card)
+    lm, lm_result = run_lm(card)
+    exported = run_exported(card, lm_result)
     for row in rows:
         row["cohort_launches"] = cohort[row["name"]]
         row["async_launches"] = asynced[row["name"]]
@@ -2354,9 +2616,15 @@ def main() -> int:
         row["dirichlet_launches"] = dirichlet[row["name"]]
         row["telemetry_launches"] = telemetry["counts"][row["name"]]
         row["host_reference_launches"] = host["host_counts"][row["name"]]
+        row["linreg_launches"] = linreg[row["name"]]
+        row["transformer_launches"] = lm[row["name"]]
     rows[1]["fl_run_launches"] = host["fl_norms"]
+    for row in serve_rows:
+        row["exported_serve_launches"] = exported[row["name"]]
+    rows[1]["exported_serve_launches"] = exported["tile_norms"]
     rows += serve_rows
 
+    phase("[end]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

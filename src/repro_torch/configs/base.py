@@ -5,11 +5,12 @@ repeats a super-block of sub-blocks ``repeats`` times, and the stage's
 parameters carry a leading ``repeats`` dim on every leaf.  The parameter
 dtype is a name (``"bfloat16"``), mapped to a torch dtype by ``pdtype``.
 
-The port carries the fields of the llama-family decoders it serves
-(global attention + MLP blocks); the reference's other block kinds, its
-encoder / memory fields, compute dtype and smoke-size reduction come with
-the slices that need them.  ``AttnSpec`` lives here too: the reference
-keeps it in ``models/attention.py``.
+The port carries the fields of the llama-family decoders (attention + MLP
+blocks): widths, the parameter and compute dtypes, the window fields and
+the smoke-size reduction; the reference's recurrent, MoE, MLA and
+encoder / memory fields come with the slices that need them.
+``AttnSpec`` lives here too: the reference keeps it in
+``models/attention.py``.
 """
 
 from __future__ import annotations
@@ -25,20 +26,31 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 @dataclasses.dataclass(frozen=True)
 class AttnSpec:
-    """Global causal GQA with RoPE and the 1/sqrt(head_dim) softmax scale
-    (the reference's window, scale and no-RoPE options are not ported)."""
+    """Grouped-query attention: causal or not, an optional sliding window
+    (tokens), RoPE or none, and the softmax scale (1/sqrt(head_dim) unless
+    ``softmax_scale`` is given)."""
     num_heads: int
     num_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
     qkv_bias: bool = False
+    causal: bool = True
+    window: Optional[int] = None
+    use_rope: bool = True
+    softmax_scale: Optional[float] = None
+
+    @property
+    def scale(self) -> float:
+        return self.softmax_scale if self.softmax_scale is not None \
+            else self.head_dim ** -0.5
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
     """One sub-block of a super-block.
 
-    kind: attn (the reference's other kinds are not ported)
+    kind: attn (the reference's other kinds are not ported: ROADMAP.md
+          Queue A, item 10)
     ffn:  mlp | none
     """
     kind: str
@@ -75,7 +87,13 @@ class ArchConfig:
     act: str = "silu"
     tie_embeddings: bool = True
 
+    # the window of "local_attn" blocks, and the long-context decode
+    # variant's rolling window (None: the arch has none)
+    local_window: int = 2048
+    long_context_window: Optional[int] = 8192
+
     param_dtype: str = "float32"      # storage; the serving path runs float32
+    compute_dtype: str = "float32"    # activations of the training forward
 
     @property
     def head_dim_(self) -> int:
@@ -89,15 +107,49 @@ class ArchConfig:
     def pdtype(self) -> torch.dtype:
         return DTYPES[self.param_dtype]
 
-    def attn_spec(self, kind: str) -> AttnSpec:
-        """The attention of a ``kind`` block: global causal GQA for
-        ``"attn"``, the only kind ported."""
-        if kind != "attn":
+    @property
+    def cdtype(self) -> torch.dtype:
+        return DTYPES[self.compute_dtype]
+
+    def attn_spec(self, kind: str, window_override: Optional[int] = None
+                  ) -> AttnSpec:
+        """The attention of a ``kind`` block: causal GQA, windowed by
+        ``window_override`` or, for ``"local_attn"``, ``local_window``.
+        Cross attention is not ported."""
+        if kind not in ("attn", "local_attn"):
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported yet: ROADMAP.md "
                 "Queue A, item 10")
+        window = window_override
+        if window is None and kind == "local_attn":
+            window = self.local_window
         return AttnSpec(self.num_heads, self.num_kv_heads, self.head_dim_,
-                        self.rope_theta, qkv_bias=self.qkv_bias)
+                        self.rope_theta, qkv_bias=self.qkv_bias,
+                        causal=True, window=window)
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+    def smoke_variant(self) -> "ArchConfig":
+        """The reference's reduced config for CPU runs: one repeat of the
+        first two stages (sub-blocks deduplicated by (kind, ffn), at most
+        three), d_model <= 128, <= 4 heads (a multiple of the KV heads),
+        d_ff <= 256, vocab <= 512, float32 parameters and compute."""
+        small_stages = []
+        for st in self.stages[:2]:
+            seen, blocks = set(), []
+            for b in st.blocks:
+                if (b.kind, b.ffn) not in seen:
+                    seen.add((b.kind, b.ffn))
+                    blocks.append(b)
+            small_stages.append(StageSpec(1, tuple(blocks[:3])))
+        d_model = min(self.d_model, 128)
+        heads = min(self.num_heads, 4)
+        kv = min(self.num_kv_heads, heads)
+        heads = (heads // kv) * kv if heads % kv else heads
+        return self.replace(
+            stages=tuple(small_stages), d_model=d_model, num_heads=heads,
+            num_kv_heads=kv, head_dim=d_model // heads,
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            param_dtype="float32", compute_dtype="float32")

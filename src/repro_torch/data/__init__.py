@@ -1,2 +1,3 @@
-"""Data for the host reference path: the seeded synthetic image set and
-its federated partitions (``synthetic``)."""
+"""Data: the seeded synthetic image set and its federated partitions for
+the host reference path (``synthetic``), and the synthetic LM token
+streams of the transformer task (``tokens``)."""

@@ -483,19 +483,24 @@ class ClientData:
             torch.arange(start, stop, device=self.device))
 
 
-def _batch_bytes(task: TASK.FleetTask, num_clients: int,
-                 dtype: torch.dtype) -> int:
-    x = num_clients * task.local_batch * task.feature_dim
-    return x * torch.finfo(dtype).bits // 8 + num_clients * task.local_batch * 8
+def _batch_bytes(task: TASK.FleetTask, state: PyTree, seed: int,
+                 num_clients: int, device) -> int:
+    """The bytes of every client's batch, from client 0's."""
+    one = task.client_batch(state, seed, torch.zeros(1, dtype=torch.int64,
+                                                     device=device))
+    return num_clients * sum(leaf.numel() * leaf.element_size()
+                             for leaf in pruning.flatten(one))
 
 
-def _cache_data(cfg: FleetConfig, task: TASK.FleetTask, dtype) -> bool:
+def _cache_data(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
+                seed: int, device) -> bool:
     """``cfg.cache_data``, with None meaning: cache when the task allows it
     and the fleet's batches fit ``_CACHE_LIMIT_BYTES``."""
     if cfg.cache_data is not None:
         return bool(cfg.cache_data)
     return task.cache_batches and _batch_bytes(
-        task, cfg.topology.num_clients, dtype) <= _CACHE_LIMIT_BYTES
+        task, state, seed, cfg.topology.num_clients,
+        device) <= _CACHE_LIMIT_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -1408,10 +1413,16 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
         _check_on_device("the start's params, task state and batches",
                          tuple(start), dev)
         params, state, batches = start
+    # the wireless model prices the task's real model where it knows it
+    bits = task.model_bits(params)
+    if bits is not None:
+        cfg = dataclasses.replace(
+            cfg, wireless=cfg.wireless.replace(model_bits=float(bits)))
     seed = _seed(cfg.seed, "data")
     if batches is None:
         data = ClientData.draw(task, state, seed, topo.num_clients, dev,
-                               cache=_cache_data(cfg, task, dtype))
+                               cache=_cache_data(cfg, task, state, seed,
+                                                 dev))
     else:
         data = ClientData(task, state, seed, dev, cached=batches)
     return Simulation(cfg=cfg, task=task, params=params, task_state=state,

@@ -34,6 +34,12 @@ under ``block_masks``): per-client autodiff at the pruned point with
 ``torch.func``, which forms the (clients, params) gradient batch.  It is
 no Pallas kernel and has none here; the fleet engine's
 ``kernel="reference"`` path runs ``masked_client_grads``.
+
+``masked_scan_grads`` is the generic tasks' fused path (the reference's
+``lax.scan`` of the same name, no Pallas kernel either): the same
+weighted sum of block-pruned gradients for any ``loss_fn``, with autodiff
+over bounded blocks of clients and the sum taken client by client in
+index order, so no (clients, params) batch beyond a block is formed.
 """
 
 from __future__ import annotations
@@ -44,12 +50,14 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import pruning
+from repro_torch.kernels import block_sparse_matmul as _bsm
 from repro_torch.kernels import build
 from repro_torch.models import mlp
 
 __all__ = ["layer_weights", "grads_tree", "layer_norm_states", "layer_keeps",
            "fused_grads_plain", "fused_fleet_grads", "segments",
-           "masked_client_grads", "weighted_sum", "reference_grads"]
+           "masked_client_grads", "weighted_sum", "reference_grads",
+           "masked_scan_grads", "scan_block"]
 
 # dW row segments per layer, fixed so the sum order is fixed: at the slice's
 # 80,000 rows the input layer's 7 x 150 dW CTAs fill 4 waves of 2 CTAs on
@@ -351,9 +359,12 @@ def masked_client_grads(loss_fn, params: dict, masks: dict, batch: dict
 
 
 def weighted_sum(weights: torch.Tensor, grads: dict) -> dict:
-    """sum_c weights[c] grads[c], leaf by leaf."""
-    return pruning.tree_map(lambda g: torch.tensordot(weights, g, dims=1),
-                            grads)
+    """sum_c weights[c] grads[c], leaf by leaf, in the promoted dtype of
+    the weights and the leaf."""
+    def one(g):
+        dt = torch.promote_types(weights.dtype, g.dtype)
+        return torch.tensordot(weights.to(dt), g.to(dt), dims=1)
+    return pruning.tree_map(one, grads)
 
 
 def reference_grads(params: dict, x: torch.Tensor, y: torch.Tensor,
@@ -367,3 +378,107 @@ def reference_grads(params: dict, x: torch.Tensor, y: torch.Tensor,
         lambda p, b: mlp.classifier_loss(p, b["x"], b["y"]), params, masks,
         {"x": x, "y": y})
     return weighted_sum(weights, grads), losses
+
+
+# ---------------------------------------------------------------------------
+# Generic task path: the Eq.-(5) sum for any loss, over bounded client blocks
+# ---------------------------------------------------------------------------
+
+# the working set a block of clients may hold: a pruned copy of the
+# params, their gradient, the weighted gradient and the element masks
+# (4 param-sized buffers a client)
+_SCAN_BLOCK_BYTES = 2 << 30
+
+
+def _block_capacity(params) -> int:
+    """Clients that fit ``_SCAN_BLOCK_BYTES`` at four param-sized buffers
+    each."""
+    nbytes = sum(leaf.numel() * leaf.element_size()
+                 for leaf in pruning.flatten(params))
+    return _SCAN_BLOCK_BYTES // max(4 * nbytes, 1)
+
+
+def scan_block(params, clients: int) -> int:
+    """Clients a ``masked_scan_grads`` block takes: as many as fit
+    ``_SCAN_BLOCK_BYTES`` (at least 1, at most ``clients``)."""
+    return max(1, min(clients, _block_capacity(params)))
+
+
+def masked_scan_grads(loss_fn, params, batch, keeps: Sequence,
+                      weights: torch.Tensor, block):
+    """Weighted sum of block-pruned gradients for an arbitrary task.
+
+    Client c's gradient of ``loss_fn(params * M_c, batch[c])`` at the
+    pruned point, re-masked by M_c, weighted by ``weights[c]`` and added
+    to the sum; M_c comes from the tile keeps ``keeps`` (per leaf in
+    ``pruning.flatten`` order, leading dim clients, ``None`` for
+    unprunable leaves), expanded on each leaf's own grid ``block`` (int,
+    pair or per-leaf list, see ``pruning.leaf_blocks``).
+
+    Clients go through in blocks of ``scan_block`` clients, a block's
+    gradients by ``torch.func.vmap`` of ``grad_and_value``.  A model too
+    large for two clients a block goes client by client through plain
+    autograd (it gains nothing from batching, and the transforms'
+    dispatch costs more per op than its kernels).  The sum adds one
+    client at a time in index order, as the reference's scan carries it,
+    so it repeats bit for bit; on the CPU the block size changes no bit
+    either (on the card, batched products of two block sizes may round
+    apart).  The sum accumulates in ``promote_types(weights.dtype,
+    float32)`` promoted with each leaf's dtype.  Returns ``(grad_wsum,
+    losses)``: the params-shaped weighted sum and the (clients,)
+    unweighted losses.
+    """
+    leaves, flags = pruning._flatten_prunable(params)
+    blocks = pruning.leaf_blocks(flags, block)
+    prunable = [i for i, f in enumerate(flags) if f]
+    acc_dtype = torch.promote_types(weights.dtype, torch.float32)
+    acc = [torch.zeros(w.shape, dtype=torch.promote_types(w.dtype, acc_dtype),
+                       device=w.device) for w in leaves]
+    n = weights.shape[0]
+    alone = _block_capacity(params) < 2
+    step = scan_block(params, n)
+
+    def pruned_at(masks):
+        pruned = list(leaves)
+        for i, m in zip(prunable, masks):
+            pruned[i] = torch.where(m, leaves[i], 0.0)
+        return pruned
+
+    def remasked(g, masks):
+        g = list(g)
+        for i, m in zip(prunable, masks):
+            g[i] = torch.where(m, g[i], 0.0)
+        return g
+
+    def one(masks, batch_i):
+        def loss_of(ws):
+            return loss_fn(pruning.unflatten(params, ws), batch_i)
+        g, loss = torch.func.grad_and_value(loss_of)(pruned_at(masks))
+        return remasked(g, masks), loss
+
+    def single(masks, batch_i):
+        xs = [p.detach().requires_grad_() for p in pruned_at(masks)]
+        with torch.enable_grad():
+            loss = loss_fn(pruning.unflatten(params, xs), batch_i)
+        g = torch.autograd.grad(loss, xs, allow_unused=True,
+                                materialize_grads=True)
+        return [gi[None] for gi in remasked(g, masks)], loss.detach()[None]
+
+    losses = []
+    for j in range(0, n, step):
+        k = min(j + step, n)
+        masks = [_bsm.expand_mask(keeps[i][j:k] > 0, leaves[i].shape,
+                                  *blocks[i]) for i in prunable]
+        if alone:
+            g, loss = single([m[0] for m in masks],
+                             pruning.tree_map(lambda a: a[j], batch))
+        else:
+            g, loss = torch.func.vmap(one)(
+                masks, pruning.tree_map(lambda a: a[j:k], batch))
+        w = weights[j:k]
+        for lf, gl in enumerate(g):
+            wg = w.reshape((-1,) + (1,) * (gl.ndim - 1)) * gl
+            for c in range(k - j):
+                acc[lf] = acc[lf] + wg[c]
+        losses.append(loss)
+    return pruning.unflatten(params, acc), torch.cat(losses)

@@ -1,13 +1,32 @@
-"""Grouped-query attention parameters (the port of the parts of
-``repro.models.attention`` the serving path uses; ``AttnSpec`` lives in
-``configs.base``)."""
+"""Grouped-query attention (the port of ``repro.models.attention`` for the
+llama family: its parameters and its full-sequence forward; ``AttnSpec``
+lives in ``configs.base``).
+
+The forward mirrors the reference's numerics: q, k and v are cast to
+float32 for the scores and the weighted sum, a mask enters as an additive
+``NEG_INF`` bias before the softmax, and the output is cast back to the
+activations' dtype before ``wo``.  Sequences of ``FLASH_THRESHOLD`` tokens
+or more take ``flash_attention``, the reference's online-softmax double
+loop over chunks, here as plain differentiable torch on one device (the
+port's CUDA ``flash_prefill`` is forward-only, so training does not use
+it).  Every function is functional, so ``torch.func`` transforms it.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import AttnSpec
 from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+# sequences at/above this length route through flash_attention
+FLASH_THRESHOLD = 2048
+
+_ROADMAP_CROSS = "ROADMAP.md Queue A, item 10 (cross attention)"
 
 
 def init_gqa(generator, d_model: int, spec: AttnSpec, dtype) -> dict:
@@ -25,3 +44,137 @@ def init_gqa(generator, d_model: int, spec: AttnSpec, dtype) -> dict:
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float
+                ) -> torch.Tensor:
+    """q: (B,S,H,hd), k: (B,T,Hkv,hd) -> scores (B,S,H,T), float32."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, h // hkv, hd)
+    scores = torch.einsum("bskgd,btkd->bskgt", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    return scores.reshape(b, s, h, k.shape[1])
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    b, s, h, t = probs.shape
+    hkv = v.shape[2]
+    pg = probs.reshape(b, s, hkv, h // hkv, t)
+    out = torch.einsum("bskgt,btkd->bskgd", pg, v.to(torch.float32))
+    return out.reshape(b, s, h, v.shape[-1])
+
+
+def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, 0.0, NEG_INF)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """Masked GQA attention; ``mask`` broadcasts to (B,S,H,T)."""
+    scores = _gqa_scores(q, k, scale)
+    if mask is not None:
+        scores = scores + _mask_bias(mask)
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, v)
+
+
+def causal_window_mask(s: int, t: int, offset: int, window: Optional[int],
+                       device=None) -> torch.Tensor:
+    """(1, S, 1, T) mask: query i (absolute offset+i) sees key j iff
+    j <= offset+i and (no window or j > offset+i-window)."""
+    qpos = offset + torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(t, device=device)[None, :]
+    m = kpos <= qpos
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    return m[None, :, None, :]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool = True,
+                    window: Optional[int] = None, q_chunk: int = 512,
+                    kv_chunk: int = 1024) -> torch.Tensor:
+    """GQA attention as a double loop (query chunks x key chunks) with an
+    online softmax: no (S x T) score tensor is formed.  q: (B,S,H,hd),
+    k/v: (B,T,Hkv,hd); self-attention positions (query i at i, keys at
+    0..T-1).  A chunk size that does not divide S is halved until it
+    does; a ragged T is padded to a chunk multiple and the padding
+    masked.  Autograd keeps each chunk pair's probabilities for the
+    backward (the reference recomputes them under ``jax.checkpoint``:
+    the same values, more memory here)."""
+    b, s, h, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    g = h // hkv
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, t)
+    while s % q_chunk:
+        q_chunk //= 2
+    t_valid = t
+    if t % kv_chunk:
+        pad = kv_chunk - t % kv_chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        t += pad
+    nq, nk = s // q_chunk, t // kv_chunk
+    qc = q.reshape(b, nq, q_chunk, hkv, g, hd).to(torch.float32)
+    kc = k.reshape(b, nk, kv_chunk, hkv, hd).to(torch.float32)
+    vc = v.reshape(b, nk, kv_chunk, hkv, vd).to(torch.float32)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_blk = qc[:, qi]
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((b, q_chunk, hkv, g), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, q_chunk, hkv, g), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((b, q_chunk, hkv, g, vd), dtype=torch.float32,
+                          device=dev)
+        for kj in range(nk):
+            scores = torch.einsum("bqkgd,btkd->bqkgt", q_blk,
+                                  kc[:, kj]) * scale
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            valid = (kpos < t_valid)[None, :].expand(q_chunk, kv_chunk)
+            if causal:
+                valid = valid & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                valid = valid & (kpos[None, :] > qpos[:, None] - window)
+            scores = torch.where(valid[None, :, None, None, :], scores,
+                                 NEG_INF)
+            m_new = torch.maximum(m, torch.amax(scores, dim=-1))
+            p = torch.exp(scores - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgt,btkd->bqkgd", p, vc[:, kj])
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    return torch.stack(outs, dim=1).reshape(b, s, h, vd)
+
+
+def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence self-attention (training / prefill); x: (B, S, d)."""
+    if kv_x is not None:
+        raise NotImplementedError(
+            f"cross attention is not ported yet: {_ROADMAP_CROSS}")
+    b, s, _ = x.shape
+    q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
+    k = _split_heads(L.dense(p["wk"], x), spec.num_kv_heads)
+    v = _split_heads(L.dense(p["wv"], x), spec.num_kv_heads)
+    if spec.use_rope:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        q = L.apply_rope(q, positions, spec.rope_theta)
+        k = L.apply_rope(k, positions, spec.rope_theta)
+    if s >= FLASH_THRESHOLD:
+        out = flash_attention(q, k, v, spec.scale, causal=spec.causal,
+                              window=spec.window)
+    else:
+        mask = (causal_window_mask(s, s, 0, spec.window, x.device)
+                if spec.causal else None)
+        out = attend(q, k, v, mask, spec.scale)
+    return L.dense(p["wo"], out.reshape(b, s, -1).to(x.dtype))

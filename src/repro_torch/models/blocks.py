@@ -7,10 +7,23 @@ llama family: attention mixer + optional MLP)::
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
 _ROADMAP_TAIL = "ROADMAP.md Queue A, item 10"
+
+
+def _check_kinds(spec) -> None:
+    if spec.kind != "attn":
+        raise NotImplementedError(
+            f"block kind {spec.kind!r} is not ported yet: {_ROADMAP_TAIL}")
+    if spec.ffn not in ("mlp", "none"):
+        raise NotImplementedError(
+            f"ffn kind {spec.ffn!r} is not ported yet: {_ROADMAP_TAIL}")
 
 
 def _norm_init(cfg, generator) -> dict:
@@ -25,12 +38,7 @@ def norm_apply(cfg, p, x):
 def init_block(cfg, spec, generator) -> dict:
     """One sub-block's params: ``norm_mix``, ``attn`` and, for an MLP
     block, ``norm_ffn`` and ``ffn``."""
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"block kind {spec.kind!r} is not ported yet: {_ROADMAP_TAIL}")
-    if spec.ffn not in ("mlp", "none"):
-        raise NotImplementedError(
-            f"ffn kind {spec.ffn!r} is not ported yet: {_ROADMAP_TAIL}")
+    _check_kinds(spec)
     p: dict = {"norm_mix": _norm_init(cfg, generator),
                "attn": A.init_gqa(generator, cfg.d_model,
                                   cfg.attn_spec(spec.kind), cfg.pdtype)}
@@ -39,3 +47,21 @@ def init_block(cfg, spec, generator) -> dict:
         p["ffn"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.pdtype,
                               gated=(cfg.act != "gelu"))
     return p
+
+
+def apply_block(cfg, spec, p: dict, x: torch.Tensor,
+                memory: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block application; returns ``(x, aux)`` with the MoE
+    auxiliary loss ``aux`` 0 (no MoE block is ported).  ``memory`` (cross
+    attention) is not ported."""
+    _check_kinds(spec)
+    del memory
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    y = norm_apply(cfg, p["norm_mix"], x)
+    x = x + A.gqa_forward(p["attn"], cfg.attn_spec(spec.kind), y, positions)
+    if "ffn" in p:
+        y = norm_apply(cfg, p["norm_ffn"], x)
+        x = x + L.mlp(p["ffn"], y, cfg.act)
+    return x, aux

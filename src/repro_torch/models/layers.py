@@ -5,7 +5,10 @@
   gives tensors on the ``meta`` device (shapes and dtypes only, what a
   loader needs to know what to read);
 * weight matrices are stored (in_features, out_features): ``x @ w``;
-* norms and RoPE compute in float32 and return the input's dtype.
+* apply functions compute in the activations' dtype (the config's compute
+  dtype), weights cast to it; norms, RoPE and the unembedding compute in
+  float32, as the reference does.  They are functional (no in-place
+  writes), so ``torch.func`` transforms them.
 """
 
 from __future__ import annotations
@@ -70,6 +73,24 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype, gated: bool = True,
 # Apply functions
 # ---------------------------------------------------------------------------
 
+def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows of the embedding table (a gather; its gradient sums the rows'
+    gradients per token) in ``dtype``."""
+    return F.embedding(tokens, p["embedding"]).to(dtype)
+
+
+def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits = x @ E^T, in float32."""
+    return x.to(torch.float32) @ p["embedding"].to(torch.float32).T
+
+
 def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in float32.  The mean of squares is summed in float64 and
     rounded to float32, so a row's result does not depend on how many rows
@@ -122,3 +143,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """``w_out(act(w_gate x) * w_in x)``, or ``w_out(act(w_in x))`` without
+    a gate."""
+    act_fn = ACTS[act]
+    h = dense(p["w_in"], x)
+    if "w_gate" in p:
+        h = act_fn(dense(p["w_gate"], x)) * h
+    else:
+        h = act_fn(h)
+    return dense(p["w_out"], h)

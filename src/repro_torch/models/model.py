@@ -1,11 +1,17 @@
-"""Model parameters for the llama family (the port of
-``repro.models.model.init_params``).
+"""The llama-family decoder (the port of ``repro.models.model``): init,
+the full-sequence forward and the causal-LM loss.
 
 Stage params carry a leading ``repeats`` dim on every leaf, as in the
-reference, whose layer stacks are scanned per stage.
+reference, whose layer stacks are scanned per stage; here the forward
+loops over the repeats (one ``unbind`` a stage leaf, so the backward
+stacks each leaf's per-layer gradients once).  The dense decode
+(``init_cache``, ``decode_step``) is not ported yet: ROADMAP.md Queue A,
+item 8c; the serving path decodes with ``serve.model.SparseModel``.
 """
 
 from __future__ import annotations
+
+from typing import Any, Optional
 
 import torch
 
@@ -13,6 +19,17 @@ from repro_torch.core import pruning
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
+PyTree = Any
+
+# (seq * vocab) threshold above which the loss streams over seq chunks
+# instead of forming the whole (B, S, V) logits
+_CHUNKED_LOSS_ELEMS = 64 * 1024 * 1024
+_LOSS_CHUNK = 512
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
 
 def _init_stage(cfg, stage, generator) -> dict:
     """Stacked params: every leaf gets leading dim ``stage.repeats``."""
@@ -41,3 +58,112 @@ def init_params(cfg, generator) -> dict:
                                          cfg.vocab_size, cfg.pdtype)
     return params
 
+
+def param_count(params: PyTree) -> int:
+    return sum(int(leaf.numel()) for leaf in pruning.flatten(params))
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _stage_forward(cfg, stage, stage_params, x, positions):
+    """The stage's super-block applied once per repeat, in order."""
+    leaves = [torch.unbind(leaf) for leaf in pruning.flatten(stage_params)]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(stage.repeats):
+        layer = pruning.unflatten(stage_params, [lv[r] for lv in leaves])
+        for i, spec in enumerate(stage.blocks):
+            x, a = B.apply_block(cfg, spec, layer[f"b{i}"], x, None,
+                                 positions)
+            aux = aux + a
+    return x, aux
+
+
+def hidden_states(cfg, params, tokens: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Residual stream after the final norm (pre-unembedding), and the
+    auxiliary loss; tokens: (B, S) integers."""
+    b, s = tokens.shape
+    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for stage, stage_params in zip(cfg.stages, params["stages"]):
+        x, a = _stage_forward(cfg, stage, stage_params, x, positions)
+        aux = aux + a
+    return B.norm_apply(cfg, params["final_norm"], x), aux
+
+
+def _unembed(cfg, params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], x)
+    return L.dense(params["unembed"], x.to(torch.float32))
+
+
+def forward(cfg, params, tokens: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (logits (B, S, V) float32, auxiliary loss)."""
+    x, aux = hidden_states(cfg, params, tokens)
+    return _unembed(cfg, params, x), aux
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].to(torch.int64))[..., 0]
+
+
+def _chunked_nll(cfg, params, x: torch.Tensor, targets: torch.Tensor,
+                 chunk: int = _LOSS_CHUNK) -> torch.Tensor:
+    """Streaming cross-entropy: logits exist one (B, chunk, V) block at a
+    time, summed chunk by chunk in order; the mean over every token."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(0, s, chunk):
+        logits = _unembed(cfg, params, x[:, j:j + chunk])
+        total = total + torch.sum(_nll(logits, targets[:, j:j + chunk]))
+    return total / (b * s)
+
+
+def loss_fn(cfg, params, batch: dict, aux_weight: float = 0.01
+            ) -> tuple[torch.Tensor, dict]:
+    """Causal LM loss (next token); batch = ``{"tokens"[, "mask"]}``.
+    A (seq x vocab) product above ``_CHUNKED_LOSS_ELEMS`` without a mask
+    streams the unembedding and the cross-entropy over sequence chunks."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    mask = batch.get("mask")
+    if mask is None and (s - 1) * cfg.vocab_size > _CHUNKED_LOSS_ELEMS:
+        x, aux = hidden_states(cfg, params, tokens)
+        # positions 0..S-2 predict tokens 1..S-1
+        loss = _chunked_nll(cfg, params, x[:, :-1], tokens[:, 1:])
+    else:
+        logits, aux = forward(cfg, params, tokens)
+        nll = _nll(logits[:, :-1], tokens[:, 1:])
+        if mask is not None:
+            m = mask[:, 1:].to(torch.float32)
+            loss = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+        else:
+            loss = torch.mean(nll)
+    return loss + aux_weight * aux, {"loss": loss, "moe_aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+_ROADMAP_DECODE = "ROADMAP.md Queue A, item 8c (the model's dense decode)"
+
+
+def init_cache(cfg, batch: int, cache_len: int,
+               window: Optional[int] = None) -> dict:
+    raise NotImplementedError(f"init_cache is not ported yet: "
+                              f"{_ROADMAP_DECODE}")
+
+
+def decode_step(cfg, params, token: torch.Tensor, cache: dict,
+                window: Optional[int] = None):
+    raise NotImplementedError(f"decode_step is not ported yet: "
+                              f"{_ROADMAP_DECODE}")

@@ -83,6 +83,20 @@ def export_pruned(path: str, task, params: PyTree, rho: float
     return bundle
 
 
+def export_from_result(path: str, task, result, rho: Optional[float] = None,
+                       device=None) -> PrunedBundle:
+    """Export a ``run_fleet`` result (its final params, host numpy) pruned
+    at the final round's mean rate, unless ``rho`` is given.  The params
+    go to ``device`` (the card unless ``"cpu"`` is passed), where the
+    tiles are ranked."""
+    if rho is None:
+        rho = float(np.asarray(result.mean_prune)[-1])
+    device = resolve_device(device)
+    params = pruning.tree_map(
+        lambda a: torch.as_tensor(np.array(a), device=device), result.params)
+    return export_pruned(path, task, params, rho)
+
+
 def load_pruned(path: str, task, device=None) -> PrunedBundle:
     """Load a bundle; parameter shapes and dtypes come from
     ``task.init_params`` on the ``meta`` device (nothing is drawn).

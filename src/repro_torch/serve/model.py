@@ -44,6 +44,12 @@ def _validate(cfg) -> None:
             if spec.ffn not in ("mlp", "none", None):
                 raise NotImplementedError(
                     f"serve: ffn kind {spec.ffn!r} unsupported")
+    aspec = cfg.attn_spec("attn")
+    if aspec.window is not None:
+        raise NotImplementedError("serve: windowed attention unsupported")
+    if aspec.softmax_scale is not None \
+            and aspec.softmax_scale != aspec.head_dim ** -0.5:
+        raise NotImplementedError("serve: custom softmax scale unsupported")
 
 
 def _tile_live(keep: np.ndarray, block: int, axis: int, span: int,

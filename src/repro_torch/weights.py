@@ -89,11 +89,18 @@ def round_draws_from_numpy(h_up, h_down, u_strag, u_arr, gumbel=None,
 def start_from_numpy(params: Mapping, task_state: Mapping,
                      batches: Optional[Mapping] = None,
                      dtype: torch.dtype = torch.float32,
-                     device=None) -> SimStart:
+                     device=None,
+                     params_dtype: Optional[torch.dtype] = None) -> SimStart:
     """The model and data side of a run -> ``SimStart`` (``batches=None``:
-    the run draws them from the task state)."""
-    return SimStart(*(None if t is None else tree_from_numpy(t, dtype, device)
-                      for t in (params, task_state, batches)))
+    the run draws them from the task state).  ``params_dtype`` (None:
+    ``dtype``) is the params' own: a transformer's stay in its config's
+    parameter dtype in a float64 run, as the reference's do.  A
+    transformer's token pool, eval tokens and cached token batches ride
+    in the task state and batches (integers: int64)."""
+    return SimStart(
+        tree_from_numpy(params, params_dtype or dtype, device),
+        tree_from_numpy(task_state, dtype, device),
+        None if batches is None else tree_from_numpy(batches, dtype, device))
 
 
 def run_start_from_numpy(params: Mapping, uniforms,

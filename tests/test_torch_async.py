@@ -28,7 +28,7 @@ from repro.fleet import scheduler as JSCHED
 from repro_torch.fleet import engine as TENG
 from repro_torch.fleet import scheduler as TSCHED
 
-from test_torch_engine import _configs, _port, _reference
+from test_torch_engine import HEX, _configs, _port, _reference
 
 RTOL = 1e-5
 # (schedule, topology, overrides).  A round deadline that binds for only
@@ -46,6 +46,17 @@ ASYNC = {
                         dict(kernel="fused", control_chunk=1)),
     "retry_ties": (dict(round_deadline_s=1e-3), (2, 6),
                    dict(kernel="fused")),
+    # features combined; the buffer (6) is one whole cell
+    "hex_one_cell_buffer": (dict(straggler_prob=0.25), (2, 6),
+                            dict(kernel="fused", geometry=HEX, fp_rtol=0.0)),
+    "dirichlet": ({}, (2, 6), dict(kernel="fused", dirichlet_alpha=0.3)),
+    "telemetry_weighted_cohort": (dict(participation="weighted",
+                                       participants_per_cell=4), (2, 6),
+                                  dict(kernel="fused", control_chunk=1,
+                                       telemetry=True)),
+    "two_tier_cohort": (dict(participation="uniform",
+                             participants_per_cell=3), (2, 6),
+                        dict(kernel="fused", cloud_period=2)),
 }
 
 

@@ -35,12 +35,14 @@ from repro.fleet import engine as JENG
 from repro.fleet import scheduler as JSCHED
 from repro.fleet import solver as JSOL
 from repro.fleet import task as JTASK
+from repro.fleet import telemetry as JTEL
 from repro.fleet import topology as JTOPO
 from repro_torch import weights
 from repro_torch.fleet import engine as TENG
 from repro_torch.fleet import scheduler as TSCHED
 from repro_torch.fleet import solver as TSOL
 from repro_torch.fleet import task as TTASK
+from repro_torch.fleet import telemetry as TTEL
 from repro_torch.fleet import topology as TTOPO
 
 RTOL = 1e-5
@@ -72,14 +74,36 @@ CASES = {
     "hex_mobility_handover": ({}, (3, 4), dict(geometry=HEX, fp_rtol=0.0)),
     "two_tier": ({}, (3, 4), dict(cloud_period=2)),
     "dirichlet": ({}, (2, 4), dict(dirichlet_alpha=0.3)),
+    # features combined (a binding deadline under hex cells is left out:
+    # capped clients sit on the deadline, and two float orders split them)
+    "hex_cohort": (UNIFORM, (3, 5), dict(geometry=HEX, fp_rtol=0.0)),
+    "hex_two_tier": ({}, (3, 4), dict(geometry=HEX, fp_rtol=0.0,
+                                      cloud_period=2)),
+    "hex_control_chunk": ({}, (3, 4), dict(geometry=HEX, fp_rtol=0.0,
+                                           control_chunk=2)),
+    "hex_reference": ({}, (3, 4), dict(geometry=HEX, fp_rtol=0.0,
+                                       kernel="reference")),
+    "dirichlet_cohort": (UNIFORM, (3, 5), dict(dirichlet_alpha=0.3)),
+    "two_tier_cohort": (UNIFORM, (3, 5), dict(cloud_period=2)),
+    "cloud_period_one": ({}, (3, 4), dict(cloud_period=1)),
+    "two_tier_reference_block": ({}, (3, 4), dict(
+        cloud_period=2, kernel="reference", mask_kind="block")),
+    "telemetry_control_chunk": (dict(UNIFORM, straggler_prob=0.2), (3, 5),
+                                dict(control_chunk=2, telemetry=True)),
+    "telemetry_hex_cohort": (UNIFORM, (3, 5), dict(geometry=HEX, fp_rtol=0.0,
+                                                   telemetry=True)),
 }
 
 
 def _configs(schedule, topology=(2, 4), extra=None, rounds=3):
     """The JAX and the port's FleetConfig.  ``extra`` may hold ``geometry``
-    (a dict of HexInterference fields), ``fp_rtol`` (the solver's) and
-    ``dirichlet_alpha`` (the task's) besides FleetConfig fields."""
+    (a dict of HexInterference fields), ``fp_rtol`` (the solver's),
+    ``dirichlet_alpha`` (the task's) and ``telemetry`` (True: each
+    package's default TelemetryConfig) besides FleetConfig fields."""
     extra = dict(extra or {})
+    if extra.pop("telemetry", False):
+        extra["telemetry"] = (JTEL.TelemetryConfig(), TTEL.TelemetryConfig())
+    tel = extra.pop("telemetry", (None, None))
     hexkw = extra.pop("geometry", None)
     solver = {"fp_rtol": extra.pop("fp_rtol")} if "fp_rtol" in extra else {}
     task_kw = dict(TASK_KW, dirichlet_alpha=extra.pop("dirichlet_alpha",
@@ -90,13 +114,13 @@ def _configs(schedule, topology=(2, 4), extra=None, rounds=3):
         topology=JTOPO.FleetTopology(*topology),
         schedule=JSCHED.ScheduleConfig(**schedule),
         geometry=None if hexkw is None else JTOPO.HexInterference(**hexkw),
-        solver=JSOL.SolverConfig(**solver), **common)
+        solver=JSOL.SolverConfig(**solver), telemetry=tel[0], **common)
     tcfg = TENG.FleetConfig(
         task=TTASK.SyntheticMLPTask(**task_kw),
         topology=TTOPO.FleetTopology(*topology),
         schedule=TSCHED.ScheduleConfig(**schedule),
         geometry=None if hexkw is None else TTOPO.HexInterference(**hexkw),
-        solver=TSOL.SolverConfig(**solver), **common)
+        solver=TSOL.SolverConfig(**solver), telemetry=tel[1], **common)
     return jcfg, tcfg
 
 

@@ -51,6 +51,7 @@ def test_package_covers_the_slice_modules():
                 "kernels.ops", "checkpoint", "serve", "serve.export",
                 "serve.sparse", "serve.model", "serve.engine",
                 "fleet.telemetry", "core.tradeoff", "data", "data.synthetic",
+                "data.tokens",
                 "federated", "federated.client", "federated.server",
                 "federated.system"}
     assert {f"repro_torch.{m}" for m in expected} <= set(_modules())

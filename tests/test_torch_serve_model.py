@@ -11,6 +11,7 @@ impls to each other.  Also the model-side pieces under them: configs,
 pruning of stacked leaves, layers, the tile grid and checkpoints.
 """
 
+import dataclasses
 import os
 import types
 
@@ -127,9 +128,21 @@ def test_param_shapes_and_tile_grid_match_reference():
 
 
 def test_transformer_task_training_is_not_ported():
-    task = TTask(arch=t_arch())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        task.loss({}, {})
+    """The training half is ported now (a finite loss and gradient on a
+    pool batch); the model's dense decode still raises, naming its
+    ROADMAP item (8c)."""
+    task = TTask(arch=t_arch(), local_batch=2, seq_len=8)
+    gen = torch.Generator().manual_seed(0)
+    params = task.init_params(gen)
+    state = task.build(gen, torch.float32, "cpu")
+    batch = task.client_batch(state, 0, torch.tensor([3]))
+    tokens = batch["tokens"][0]
+    assert tokens.shape == (2, 8)
+    g, loss = torch.func.grad_and_value(task.loss)(params, {"tokens": tokens})
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(leaf).all() for leaf in TPR.flatten(g))
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        TM.decode_step(task.config(), params, tokens[:, :1], {})
 
 
 @needs_jax
@@ -290,6 +303,40 @@ def test_validation_rejects_non_llama():
     arch = t_arch(stages=(TCB.StageSpec(1, (TCB.BlockSpec("mlstm", "mlp"),)),))
     with pytest.raises(NotImplementedError):
         TSparse(arch, None, device="cpu")
+
+
+def _with_attn(base_cls, **spec_kw):
+    """A config class whose "attn" blocks carry ``spec_kw`` in their
+    ``AttnSpec`` (what a windowed or rescaled attention would give)."""
+    class Arch(base_cls):
+        def attn_spec(self, kind, window_override=None):
+            return dataclasses.replace(
+                super().attn_spec(kind, window_override), **spec_kw)
+    return Arch
+
+
+@needs_jax
+@pytest.mark.parametrize("spec_kw,what", [
+    (dict(window=16), "windowed attention"),
+    (dict(softmax_scale=0.5), "custom softmax scale")])
+def test_validation_rejects_window_and_custom_scale(spec_kw, what):
+    """The reference's two AttnSpec refusals, with its messages; the
+    default scale spelled out is no refusal."""
+    t_cfg = _with_attn(TCB.ArchConfig, **spec_kw)(**{**TINY, "stages": (
+        TCB.StageSpec(1, (TCB.BlockSpec("attn", "mlp"),)),)})
+    j_cfg = _with_attn(ArchConfig, **spec_kw)(**{**TINY, "stages": (
+        StageSpec(1, (BlockSpec("attn", "mlp"),)),)})
+    with pytest.raises(NotImplementedError, match=what):
+        TSparse(t_cfg, None, device="cpu")
+    with pytest.raises(NotImplementedError, match=what):
+        JSparse(j_cfg, None)
+    same = _with_attn(TCB.ArchConfig, softmax_scale=8 ** -0.5)(
+        **{**TINY, "stages": (TCB.StageSpec(1, (TCB.BlockSpec("attn",
+                                                               "mlp"),)),)})
+    task = TTask(arch=same, target_tiles=4)
+    bundle = t_make_bundle(task, task.init_params(
+        torch.Generator().manual_seed(0)), 0.5)
+    assert TSparse(same, bundle, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.gpu
