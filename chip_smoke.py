@@ -23,7 +23,11 @@ Phases (any failure exits non-zero and prints no result line):
                ``wave_library_ms``); decode attention also timed at a long
                cache (B = 32, S = 2048, pos in [1024, 2047], ``long_*``);
                prefill also at G = 4 / hd = 64 and G = 7 / hd = 128 with
-               ragged t_valid, windows, a dead head; the tile norms in
+               ragged t_valid, windows, a dead head; phase 16c's shapes:
+               the block-sparse matmul on granite-3-2b's and qwen2-7b's
+               linears and tile grids at M in {1, 4, 16, 512} and rho in
+               {0, 0.5, 1}, decode attention at their head layouts on 16
+               and 4 slots over a cache of 64; the tile norms in
                both regimes (the fleet's three layers, and smollm-135m's
                bundle leaves in bfloat16, ``bundle_*``, and the same
                leaves in float32, phase 15b's ranking every round,
@@ -48,9 +52,11 @@ Phases (any failure exits non-zero and prints no result line):
                edge, which the line names), the §V ``run`` at 5 UEs with
                magnitude and block-16 masks, ``run_fleet_reference``, and
                the generic gradient path's tasks: a LinearRegressionTask
-               fleet (2 x 4 clients, 3 rounds) and a TransformerTask fleet
-               at the smoke width (2 x 3 clients, 2 rounds), each from
-               the task's own draws on the CPU carried as numpy;
+               fleet (2 x 4 clients, 3 rounds) and TransformerTask fleets
+               at the smoke width, smollm-135m's and olmoe-1b-7b's (its
+               4-D expert leaves in the grouped ranking), 2 x 3 clients,
+               2 rounds, each from the task's own draws on the CPU
+               carried as numpy;
   6. serve   — smollm-135m at full width (random weights from a seed,
                bfloat16, pruned at rho = 0.5 on its tile grid) through
                ServeEngine: 64 requests x (32 prompt + 32 new tokens) on 32
@@ -131,7 +137,33 @@ Phases (any failure exits non-zero and prints no result line):
                mean rate), load_pruned and ServeEngine: 8 requests x (16 +
                16) on 8 slots and on 4 (tokens equal) and in wave mode,
                with block-sparse matmul, flash prefill and decode
-               attention launches.
+               attention launches;
+ 16. dense decode, the llama configs served, MoE — one config at a time,
+               each freed before the next: (a) qwen2-7b's dense
+               ``decode_step`` in bfloat16 (B = 8, cache 128, 32 prompt
+               + 32 greedy tokens: ms a step, tokens/s, peak memory, a
+               profiled step, rerun bitwise), then a 2-layer float32
+               copy teacher-forced: decode vs forward within 2e-3 on the
+               card, card vs CPU within TOL; (b) granite-3-2b in float32
+               with a rolling window of 64 over 96 teacher-forced steps:
+               positions < 63 equal forward within 2e-3, the last
+               differs; a 2-layer copy with the window card vs CPU; (c)
+               granite-3-2b and qwen2-7b from seeded bfloat16 weights
+               through make_bundle (rho 0.5, one ranking),
+               SparseModel(impl="kernel") and ServeEngine: 16 requests x
+               (32 + 32) on 16 slots, the first 8 on 4 (tokens equal),
+               all in wave mode, launches of all three serving kernels, a
+               profiled decode step by kernel, a step's linears through
+               the kernel and torch.matmul beside their byte bound, and
+               SparseModel against the dense decode on masked params on
+               a 2-layer float32 copy at the engine's shape (16 slots,
+               cache 64, 63 steps); (d)
+               phase 6's smollm-135m bundle by impl="gather" beside
+               "kernel": ms a decode step, logits within TOL over 8
+               steps, rerun bitwise; (e) olmoe-1b-7b in float32
+               (capacity factor 8) decode vs forward within 2e-3, then
+               its bfloat16 config greedy at B = 8, timed and rerun
+               bitwise.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
@@ -139,8 +171,12 @@ bitwise.  The line before the last is the kernels JSON (the fleet rows
 also carry the launches of phases 7-15: ``telemetry_launches`` phase
 13a's, ``host_reference_launches`` phase 14b's, ``linreg_launches`` and
 ``transformer_launches`` phase 15a's and 15b's, and row 2
-``fl_run_launches`` phase 14a's; the serving rows and row 2 carry
-``exported_serve_launches``, phase 15c's); the last is the device JSON.
+``fl_run_launches`` phase 14a's and ``moe_fleet_launches`` phase 5's
+olmoe-1b-7b fleet; the serving rows and row 2 carry
+``exported_serve_launches``, phase 15c's, and ``served_launches``, phase
+16c's; the serving rows ``gather_launches``, 16d's gather impl's, and
+``gather_kernel_launches``, 16d's kernel impl's); the last is the device
+JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -584,6 +620,41 @@ SERVE_LINEARS = {"wq": (576, 576, 72, 72), "wk": (576, 192, 72, 24),
 STEP_LINEARS = ["wq", "wk", "wk", "wq", "w_in", "w_in", "w_out"]
 SERVE_LAYERS, SERVE_KV, SERVE_GROUP, SERVE_HD = 30, 3, 3, 64
 SERVE_BATCH, SERVE_PAGE, SERVE_PROMPT, SERVE_NEW = 32, 128, 32, 32
+# the configs phase 16c serves at full width
+SERVED_CONFIGS = ("granite-3-2b", "qwen2-7b")
+
+
+def served_linears(name: str) -> dict:
+    """Every distinct (K, N, bk, bn) of ``name``'s served linears on the
+    tile grid ``make_bundle`` gives it (params drawn on ``meta``: nothing
+    is allocated), keyed by the linears that share it; a tied embedding
+    is served transposed, on its grid transposed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pruning
+    from repro_torch.fleet.task import TransformerTask
+    cfg = get_config(name)
+    task = TransformerTask(arch=cfg)
+    params = task.init_params(None)
+    grid, leaves = task.tile_grid(params), pruning.flatten(params)
+    idx = pruning.unflatten(params, list(range(len(leaves))))
+    shapes: dict = {}
+    for si, stage in enumerate(cfg.stages):
+        for bi in range(len(stage.blocks)):
+            block = idx["stages"][si][f"b{bi}"]
+            for part in ("attn", "ffn"):
+                for lin, node in block.get(part, {}).items():
+                    i = node["w"]
+                    shapes.setdefault((*leaves[i].shape[-2:], *grid[i]),
+                                      []).append(lin)
+    if cfg.tie_embeddings:
+        i = idx["embed"]["embedding"]
+        (v, d), (bv, bd) = leaves[i].shape, grid[i]
+        shapes.setdefault((d, v, bd, bv), []).append("unembed")
+    else:
+        i = idx["unembed"]["w"]
+        shapes.setdefault((*leaves[i].shape, *grid[i]), []).append("unembed")
+    return {"/".join(dict.fromkeys(lins)): tuple(int(n) for n in shape)
+            for shape, lins in shapes.items()}
 
 
 def random_keep(kdim, ndim, bk, bn, rho, g):
@@ -624,20 +695,18 @@ def matmul_bound_ms(cases, transpose) -> tuple[float, str]:
     return bound_ms(nbytes, ops)
 
 
-def check_matmul(card: str, transpose: bool) -> dict:
-    """Every distinct linear shape at M in {1, 32, 1024} and rho in
-    {0, 0.5, 1} against the plain version; then one decode step's worth
-    of products (30 layers + unembedding, B = 32, rho = 0.5) timed."""
+def hold_linears(fn, name: str, transpose: bool, linears: dict, ms_: tuple,
+                 g, label: str = "") -> float:
+    """Each (K, N, bk, bn) of ``linears`` at M in ``ms_`` and rho in
+    {0, 0.5, 1} against the plain version; returns the largest
+    |difference|."""
     import torch
     from repro_torch.kernels import block_sparse_matmul as BSM
-    fn = BSM.block_sparse_matmul_t if transpose else BSM.block_sparse_matmul
-    name = "block_sparse_matmul_t" if transpose else "block_sparse_matmul"
-    g = torch.Generator(device="cuda").manual_seed(11 + transpose)
     worst = 0.0
-    for lin, (kdim, ndim, bk, bn) in SERVE_LINEARS.items():
+    for lin, (kdim, ndim, bk, bn) in linears.items():
         w = torch.randn(kdim, ndim, generator=g, device="cuda")
         shape_diff = shape_rel = 0.0
-        for m in (1, 32, 1024):
+        for m in ms_:
             x = torch.randn(m, kdim if not transpose else ndim, generator=g,
                             device="cuda")
             for rho in (0.0, 0.5, 1.0):
@@ -651,12 +720,31 @@ def check_matmul(card: str, transpose: bool) -> dict:
                 shape_rel = max(shape_rel, rel)
                 if rel > TOL:
                     raise AssertionError(
-                        f"{name} disagrees: {lin} M={m} rho={rho} "
+                        f"{name} disagrees: {label}{lin} M={m} rho={rho} "
                         f"rel={rel:.3e}")
         worst = max(worst, shape_diff)
-        log(f"  {name} {lin} ({kdim}x{ndim}, tiles {bk}x{bn}), M in "
-            f"(1, 32, 1024) x rho in (0, 0.5, 1): max_abs_err={shape_diff:.3e}"
+        log(f"  {name} {label}{lin} ({kdim}x{ndim}, tiles {bk}x{bn}), M in "
+            f"{ms_} x rho in (0, 0.5, 1): max_abs_err={shape_diff:.3e}"
             f" rel={shape_rel:.3e} (tol {TOL})")
+        del w
+    return worst
+
+
+def check_matmul(card: str, transpose: bool) -> dict:
+    """Every distinct linear shape at M in {1, 32, 1024} and rho in
+    {0, 0.5, 1} against the plain version; then one decode step's worth
+    of products (30 layers + unembedding, B = 32, rho = 0.5) timed.  The
+    forward kernel is also held at phase 16c's linears: granite-3-2b's
+    and qwen2-7b's on their own tile grids, at the M their engine gives
+    them (decode on 16 and on 4 slots, one token, the 16 x 32 prefill
+    wave)."""
+    import torch
+    from repro_torch.kernels import block_sparse_matmul as BSM
+    fn = BSM.block_sparse_matmul_t if transpose else BSM.block_sparse_matmul
+    name = "block_sparse_matmul_t" if transpose else "block_sparse_matmul"
+    g = torch.Generator(device="cuda").manual_seed(11 + transpose)
+    worst = hold_linears(fn, name, transpose, SERVE_LINEARS, (1, 32, 1024),
+                         g)
     # one decode step's products at B = 32, rho = 0.5
     cases = []
     for lin in STEP_LINEARS * SERVE_LAYERS + ["unembed"]:
@@ -688,6 +776,14 @@ def check_matmul(card: str, transpose: bool) -> dict:
     if not transpose:
         matmul_by_shape(fn, cases, masked, card)
         row.update(matmul_wave(fn, cases, masked, g, card))
+        del cases, masked
+        served_ms = (1, SERVED_FEW, SERVED_SLOTS,
+                     SERVED_SLOTS * SERVED_PROMPT)
+        for cfg_name in SERVED_CONFIGS:
+            row["max_abs_err"] = max(row["max_abs_err"], hold_linears(
+                fn, name, False, served_linears(cfg_name), served_ms, g,
+                f"{cfg_name} "))
+        torch.cuda.empty_cache()
     return row
 
 
@@ -802,6 +898,7 @@ def check_decode(card: str) -> dict:
             f"rel={rel:.3e} (tol {TOL})")
         if rel > TOL:
             raise AssertionError("decode_attention disagrees")
+    worst = max(worst, check_served_decode(g))
     serve = time_decode(*inputs(SERVE_PAGE, SERVE_PROMPT + SERVE_NEW - 1),
                         f"(B={b}, S={SERVE_PAGE}, pos < "
                         f"{SERVE_PROMPT + SERVE_NEW - 1})", card)
@@ -813,6 +910,46 @@ def check_decode(card: str) -> dict:
                 replaces="src/repro/kernels/decode_attention.py:88",
                 max_abs_err=worst, **serve,
                 **{f"long_{key}": val for key, val in long.items()})
+
+
+def check_served_decode(g) -> float:
+    """Phase 16c's decode attention: granite-3-2b's and qwen2-7b's head
+    layouts on their engine's 16 and 4 slots over its cache of 32 + 32
+    (ragged pos with 0 and the last slot), all heads live, one dead, and
+    a window with one dead, against the plain version; returns the
+    largest |difference|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    s = SERVED_PROMPT + SERVED_NEW
+    worst = 0.0
+    for name in SERVED_CONFIGS:
+        sp = get_config(name).attn_spec("attn")
+        hkv, hd = sp.num_kv_heads, sp.head_dim
+        group = sp.num_heads // hkv
+        dead = torch.ones(hkv, device="cuda")
+        dead[1] = 0.0
+        for b in (SERVED_SLOTS, SERVED_FEW):
+            for window, hm in [(None, None), (None, dead), (24, dead)]:
+                q = torch.randn(b, hkv * group, hd, generator=g,
+                                device="cuda")
+                k = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+                v = torch.randn(b, s, hkv, hd, generator=g, device="cuda")
+                pos = torch.randint(0, s, (b,), generator=g, device="cuda")
+                pos[0], pos[1] = 0, s - 1
+                got = DA.decode_attention(q, k, v, pos, window, hm)
+                ref = DA.decode_attention_plain(q, k, v, pos, window, hm)
+                torch.cuda.synchronize()
+                diff, rel = rel_err(got, ref)
+                worst = max(worst, diff)
+                log(f"  decode_attention {name} (G={group}, hd={hd}, "
+                    f"Hkv={hkv}) B={b} S={s} window={window} head 1 "
+                    f"{'live' if hm is None else 'dead'}: max_abs_err="
+                    f"{diff:.3e} rel={rel:.3e} (tol {TOL})")
+                if rel > TOL:
+                    raise AssertionError(f"decode_attention disagrees at "
+                                         f"{name}'s head layout")
+    return worst
 
 
 def check_prefill(card: str) -> dict:
@@ -1191,8 +1328,9 @@ def telemetry_card_vs_cpu(what: str, sim_cpu, tel_card: dict, tel_cpu: dict,
         f" [{card}]")
 
 
-def card_vs_cpu_paths(card: str) -> None:
-    """Phase 5: the sync fused round, then each path phases 7-12 drive."""
+def card_vs_cpu_paths(card: str) -> dict:
+    """Phase 5: the sync fused round, then each path phases 7-12 drive;
+    returns the MoE fleet's launches."""
     from repro_torch.fleet import (AsyncConfig, HexInterference,
                                    ScheduleConfig, SolverConfig,
                                    TelemetryConfig)
@@ -1227,16 +1365,20 @@ def card_vs_cpu_paths(card: str) -> None:
                 telemetry=TelemetryConfig())
     card_vs_cpu_run(card)
     card_vs_cpu_fleet_reference(card)
-    card_vs_cpu_tasks(card)
+    return card_vs_cpu_tasks(card)
 
 
-def card_vs_cpu_tasks(card: str) -> None:
+MOE_FLEET = "transformer olmoe-1b-7b, smoke width"
+
+
+def card_vs_cpu_tasks(card: str) -> dict:
     """The generic gradient path's tasks from the same numpy population,
     draws, params and task state (drawn by the task on the CPU from a
     seed) on the CPU and on the card: a linreg fleet (2 x 4 clients, 3
-    rounds) and a transformer fleet at the smoke width (2 x 3 clients, 2
-    rounds), losses and params within TOL, one ranking a round and no
-    fused call on the card."""
+    rounds) and transformer fleets at the smoke width, smollm-135m's and
+    olmoe-1b-7b's (its 4-D expert leaves in the grouped ranking), 2 x 3
+    clients, 2 rounds: losses and params within TOL, one ranking a round
+    and no fused call on the card.  Returns the MoE fleet's launches."""
     import numpy as np
     import torch
     from repro_torch import weights
@@ -1245,7 +1387,10 @@ def card_vs_cpu_tasks(card: str) -> None:
                                    LinearRegressionTask, TransformerTask,
                                    run_fleet)
     cases = (("linreg", LinearRegressionTask(noise=0.05), (2, 4), 3, 0.1),
-             ("transformer, smoke width", TransformerTask(), (2, 3), 2, 0.5))
+             ("transformer, smoke width", TransformerTask(), (2, 3), 2, 0.5),
+             (MOE_FLEET, TransformerTask(arch_name="olmoe-1b-7b"), (2, 3), 2,
+              0.5))
+    moe_counts = {}
     for what, task, (cells, per_cell), rounds, lr in cases:
         cfg = FleetConfig(task=task, topology=FleetTopology(cells, per_cell),
                           kernel="fused", rounds=rounds, lr=lr)
@@ -1279,6 +1424,9 @@ def card_vs_cpu_tasks(card: str) -> None:
             raise AssertionError(f"card and CPU runs disagree ({what})")
         if counts != {"fleet_fused_grads": 0, "tile_norms": rounds}:
             raise AssertionError(f"{what}: the card launched {counts}")
+        if what == MOE_FLEET:
+            moe_counts = counts
+    return moe_counts
 
 
 def card_vs_cpu_run(card: str) -> None:
@@ -2153,7 +2301,8 @@ def lm_task():
     from repro_torch.configs import get_config
     from repro_torch.fleet import TransformerTask
     return TransformerTask(
-        arch=get_config("smollm-135m").replace(param_dtype="float32"),
+        arch=get_config("smollm-135m").replace(param_dtype="float32",
+                                               compute_dtype="float32"),
         seq_len=16, local_batch=2, pool_clients=32)
 
 
@@ -2375,12 +2524,10 @@ def card_vs_cpu_serve(cfg, card: str) -> None:
     import numpy as np
     import torch
     from repro_torch import weights
-    from repro_torch.configs.base import BlockSpec, StageSpec
     from repro_torch.fleet.task import TransformerTask
     from repro_torch.serve import SparseModel, make_bundle
 
-    cfg2 = cfg.replace(stages=(StageSpec(2, (BlockSpec("attn", "mlp"),)),),
-                       param_dtype="float32")
+    cfg2 = two_layers(cfg)
     task = TransformerTask(arch=cfg2)
     params = numpy_params(cfg2, SERVE_SEED + 1)
     bundle = make_bundle(task, weights.tree_from_numpy(params, device="cpu"),
@@ -2408,12 +2555,8 @@ def card_vs_cpu_serve(cfg, card: str) -> None:
         logits[dev] = (torch.stack(outs, 1), lp.cpu())
     for what, a, b in zip(("decode", "prefill"), logits["cuda"],
                           logits["cpu"]):
-        diff, rel = rel_err(a, b)
-        log(f"  2-layer full-width card vs CPU {what} logits "
-            f"{tuple(a.shape)}: max_abs_err={diff:.3e} rel={rel:.3e} "
-            f"(tol {TOL}) [{card}]")
-        if rel > TOL:
-            raise AssertionError(f"card and CPU {what} logits disagree")
+        rel_gate(a, b, f"2-layer full-width card vs CPU {what} logits "
+                 f"{tuple(a.shape)}", card)
 
 
 def run_serve(card: str) -> dict:
@@ -2521,6 +2664,510 @@ def run_serve(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dense decode, the llama configs served, MoE
+# ---------------------------------------------------------------------------
+
+DEC_SEED = 2216
+DEC_BATCH, DEC_CACHE, DEC_PROMPT, DEC_NEW = 8, 128, 32, 32
+WIN, WIN_STEPS, WIN_BATCH = 64, 96, 2
+# 16c: the 4-slot run takes the first SERVED_FEW_REQUESTS requests (depth
+# cut to keep the smoke's time)
+SERVED_REQUESTS, SERVED_SLOTS, SERVED_FEW, SERVED_FEW_REQUESTS = 16, 16, 4, 8
+SERVED_PROMPT, SERVED_NEW = 32, 32
+MOE_PROMPT, MOE_NEW = 8, 32
+FORWARD_TOL = 2e-3          # tests/test_decode_equivalence.py's rtol = atol
+CARD = "cuda"               # every device phase 16 names
+SERVE_KERNELS = ("bsmm_kernel", "decode_kernel", "prefill_kernel",
+                 "tile_norms_kernel")
+
+
+def two_layers(cfg):
+    """``cfg`` at full width cut to 2 layers, float32 parameters and
+    compute."""
+    from repro_torch.configs.base import StageSpec
+    return cfg.replace(stages=(StageSpec(2, cfg.stages[0].blocks),),
+                       param_dtype="float32", compute_dtype="float32")
+
+
+def model_params(cfg, seed: int, device=None):
+    """``cfg``'s params drawn on ``device`` (None: ``CARD``) from a seed
+    (the init's scales), qkv biases N(0, 0.5^2) (the init leaves them
+    0)."""
+    import torch
+    from repro_torch.models import model as M
+    device = device or CARD
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = M.init_params(cfg, gen)
+    if cfg.qkv_bias:
+        for stage in params["stages"]:
+            for block in stage.values():
+                for name in ("wq", "wk", "wv"):
+                    b = block["attn"][name]["b"]
+                    b.copy_(0.5 * torch.randn(b.shape, generator=gen,
+                                              device=device))
+    return params
+
+
+def on_device(tree, device: str):
+    from repro_torch.core import pruning
+    return pruning.tree_map(lambda a: a.to(device), tree)
+
+
+def teacher_forced(cfg, params, toks, cache_len: int, window=None):
+    """Logits (B, T, V) of feeding ``toks`` one at a time through
+    ``decode_step``, on the tokens' device, brought to the CPU."""
+    import torch
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, toks.shape[0], cache_len, window=window,
+                         device=toks.device)
+    out = []
+    for t in range(toks.shape[1]):
+        logits, cache = M.decode_step(cfg, params, toks[:, t:t + 1], cache,
+                                      window=window)
+        out.append(logits.cpu())
+    return torch.stack(out, 1)
+
+
+def greedy(cfg, params, prompts, new: int, cache_len: int):
+    """Prompts (B, P) fed through ``decode_step``, then ``new`` greedy
+    tokens; returns (tokens (B, new) on the CPU, each step's wall in ms,
+    the last token and cache)."""
+    import torch
+    from repro_torch.models import model as M
+    b, p = prompts.shape
+    cache = M.init_cache(cfg, b, cache_len, device=prompts.device)
+    tok, out, walls = prompts[:, :1], [], []
+    for t in range(p + new - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.decode_step(cfg, params, tok, cache)
+        tok = prompts[:, t + 1:t + 2] if t + 1 < p \
+            else torch.argmax(logits, -1, keepdim=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if t + 1 >= p:
+            out.append(tok)
+    return torch.cat(out, 1).cpu(), walls, tok, cache
+
+
+def close_gate(a, b, what: str, card: str) -> None:
+    """``a`` within ``FORWARD_TOL`` of ``b`` elementwise (rtol = atol)."""
+    import torch
+    diff = float((a - b).abs().max())
+    log(f"  {what}: max_abs_err={diff:.3e} (rtol = atol = {FORWARD_TOL}) "
+        f"[{card}]")
+    if not torch.allclose(a, b, rtol=FORWARD_TOL, atol=FORWARD_TOL):
+        raise AssertionError(f"{what}: beyond {FORWARD_TOL}")
+
+
+def rel_gate(a, b, what: str, card: str) -> None:
+    """max |a - b| over max |b| within ``TOL``."""
+    diff, rel = rel_err(a, b)
+    log(f"  {what}: max_abs_err={diff:.3e} rel={rel:.3e} (tol {TOL}) "
+        f"[{card}]")
+    if rel > TOL:
+        raise AssertionError(f"{what}: rel err {rel:.3e} > {TOL}")
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.core import pruning
+    return sum(a.numel() * a.element_size() for a in pruning.flatten(tree))
+
+
+def timed_greedy(cfg, params, what: str, card: str) -> None:
+    """``DEC_BATCH`` prompts through ``greedy`` twice (tokens bitwise
+    equal), the step walls' median, tokens/s, peak memory and a profiled
+    step."""
+    import numpy as np
+    import torch
+    prompt_len = DEC_PROMPT if cfg.moe is None else MOE_PROMPT
+    new = DEC_NEW if cfg.moe is None else MOE_NEW
+    prompts = torch.as_tensor(np.random.RandomState(DEC_SEED).randint(
+        0, cfg.vocab_size, (DEC_BATCH, prompt_len)), device=CARD)
+    torch.cuda.reset_peak_memory_stats()
+    tokens, walls, tok, cache = greedy(cfg, params, prompts, new, DEC_CACHE)
+    again, walls2, *_ = greedy(cfg, params, prompts, new, DEC_CACHE)
+    med = float(np.median(walls[1:] + walls2))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # a step reads every weight and the cache once and writes the cache;
+    # of an untied embedding it gathers B rows
+    nbytes = tree_bytes(params) + 2 * tree_bytes(cache["stages"])
+    if not cfg.tie_embeddings:
+        nbytes -= tree_bytes(params["embed"])
+    log(f"  {what}: B={DEC_BATCH}, {prompt_len} prompt + {new} greedy "
+        f"tokens, cache {DEC_CACHE}: {med:.2f} ms a step (median of "
+        f"{len(walls) - 1 + len(walls2)}; first {walls[0]:.1f} ms), "
+        f"{DEC_BATCH * 1e3 / med:.1f} tokens/s, peak device memory "
+        f"{peak:.2f} GiB; byte bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms a step ({nbytes / 1e9:.2f} GB) [{card}]")
+    if not torch.equal(tokens, again):
+        raise AssertionError(f"{what}: rerun tokens differ")
+    log(f"  {what}: rerun tokens bitwise equal ({tuple(tokens.shape)})")
+    from repro_torch.models import model as M
+    profile_device(lambda: M.decode_step(cfg, params, tok, cache),
+                   f"{what} step", card)
+
+
+def run_dense_decode(card: str) -> None:
+    """16a: qwen2-7b's dense decode in bfloat16 at full width, then a
+    2-layer float32 copy teacher-forced against forward and the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("qwen2-7b")
+    t0 = time.perf_counter()
+    params = model_params(cfg, DEC_SEED)
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {M.param_count(params)} "
+        f"params {cfg.param_dtype}, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    timed_greedy(cfg, params, "qwen2-7b dense decode", card)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg2 = two_layers(cfg)
+    params = model_params(cfg2, DEC_SEED + 1, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                         generator=torch.Generator().manual_seed(DEC_SEED))
+    card_params = on_device(params, CARD)
+    dec = teacher_forced(cfg2, card_params, toks.to(CARD), 8)
+    full, _ = M.forward(cfg2, card_params, toks.to(CARD))
+    close_gate(dec, full.cpu(), "qwen2-7b 2-layer float32 decode vs forward "
+               "(2 x 8, card)", card)
+    del card_params, full
+    torch.cuda.empty_cache()
+    rel_gate(dec, teacher_forced(cfg2, params, toks, 8),
+             "qwen2-7b 2-layer float32 decode card vs CPU", card)
+
+
+def run_windowed_decode(card: str) -> None:
+    """16b: granite-3-2b in float32 with a rolling window of 64 over 96
+    teacher-forced steps, and a 2-layer copy card against CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("granite-3-2b").replace(param_dtype="float32",
+                                             compute_dtype="float32")
+    params = model_params(cfg, DEC_SEED + 2)
+    toks = torch.randint(0, cfg.vocab_size, (WIN_BATCH, WIN_STEPS),
+                         generator=torch.Generator().manual_seed(DEC_SEED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = teacher_forced(cfg, params, toks.to(CARD), WIN_STEPS, window=WIN)
+    wall = time.perf_counter() - t0
+    full, _ = M.forward(cfg, params, toks.to(CARD))
+    full = full.cpu()
+    log(f"  granite-3-2b float32, window {WIN}: {WIN_STEPS} steps at "
+        f"B={WIN_BATCH} in {wall:.2f} s ({wall * 1e3 / WIN_STEPS:.2f} ms a "
+        f"step) [{card}]")
+    close_gate(dec[:, :WIN - 1], full[:, :WIN - 1],
+               f"windowed decode vs forward, positions < {WIN - 1}", card)
+    last = float((dec[:, -1] - full[:, -1]).abs().max())
+    log(f"  last position: windowed vs forward max diff {last:.3e}")
+    if torch.allclose(dec[:, -1], full[:, -1], rtol=FORWARD_TOL,
+                      atol=FORWARD_TOL):
+        raise AssertionError("the window did not bind at the last position")
+    del params, dec, full
+    torch.cuda.empty_cache()
+
+    cfg2 = two_layers(cfg)
+    params = model_params(cfg2, DEC_SEED + 3, "cpu")
+    steps = WIN + 8
+    rel_gate(teacher_forced(cfg2, on_device(params, CARD),
+                            toks[:, :steps].to(CARD), steps, window=WIN),
+             teacher_forced(cfg2, params, toks[:, :steps], steps, window=WIN),
+             f"granite-3-2b 2-layer window {WIN} decode ({steps} steps) card "
+             f"vs CPU", card)
+
+
+def step_linears(model) -> list:
+    """A decode step's linears as (plan, arrays) pairs, the unembedding
+    last."""
+    pairs = [(plan[k], la[k]) for plan, la in zip(model.layers,
+                                                  model.arrays["layers"])
+             for k, v in plan.items() if isinstance(v, dict)]
+    return pairs + [(model.unembed, model.arrays["unembed"])]
+
+
+def step_linears_ms(model, m: int, what: str, card: str) -> None:
+    """A decode step's linears at M = ``m`` (random x): the block-sparse
+    kernel's device ms, ``torch.matmul``'s on the pre-masked float32
+    weights (the library call), and their byte bound (kept float32
+    weight read once)."""
+    import torch
+    from repro_torch.kernels import ops
+    pairs = step_linears(model)
+    g = torch.Generator(device=CARD).manual_seed(DEC_SEED)
+    xs = [torch.randn(m, p["k"], generator=g, device=CARD) for p, _ in pairs]
+
+    def kernel():
+        for (p, a), x in zip(pairs, xs):
+            ops.masked_matmul(x, a["w"], a["keep"], block_k=p["bk"],
+                              block_n=p["bn"])
+
+    def library():
+        for (p, a), x in zip(pairs, xs):
+            torch.matmul(x, a["w"])
+
+    nbytes = 4 * sum(kept_elements(a["keep"], p["k"], p["n"], p["bk"],
+                                   p["bn"]) for p, a in pairs)
+    log(f"  {what}: a step's {len(pairs)} linears at M = {m}: kernel "
+        f"{device_ms(kernel, 3, ('bsmm_kernel',)):.3f} ms, torch.matmul "
+        f"{device_ms(library, 3):.3f} ms, byte bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({nbytes / 1e9:.3f} GB of "
+        f"kept float32 weight) [{card}]")
+
+
+def kernel_device_ms(fn, what: str, card: str) -> None:
+    """``fn`` once under torch.profiler: the device ms of each serving
+    kernel, and of the whole call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in ANNOTATIONS]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        log(f"  {what}: device time not measured (no CUDA events)")
+        return
+    parts = []
+    for k in SERVE_KERNELS:
+        hits = [e for e in events if k in e.key]
+        if hits:
+            parts.append(f"{k} {sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms "
+                         f"x{sum(e.count for e in hits)}")
+    log(f"  {what}: device {total / 1e3:.3f} ms over "
+        f"{sum(e.count for e in events)} ops; " + "; ".join(parts)
+        + f" [{card}]")
+
+
+def dense_masked(cfg, card: str) -> None:
+    """A 2-layer float32 copy at full width: SparseModel (kernels) against
+    the port's own decode_step on the bundle's masked params, at the
+    engine's shape: 16 slots over a cache of 32 + 32, every step of a
+    request (positions 0-62)."""
+    import torch
+    from repro_torch.fleet.task import TransformerTask
+    from repro_torch.models import model as M
+    from repro_torch.serve import SparseModel, make_bundle
+    cfg2 = two_layers(cfg)
+    bundle = make_bundle(TransformerTask(arch=cfg2),
+                         model_params(cfg2, DEC_SEED + 5), SERVE_RHO)
+    masked = bundle.masked_params()
+    model = SparseModel(cfg2, bundle, device=CARD)
+    b, page = SERVED_SLOTS, SERVED_PROMPT + SERVED_NEW
+    steps = page - 1
+    toks = torch.randint(0, cfg.vocab_size, (b, steps), device=CARD,
+                         generator=torch.Generator(device=CARD)
+                         .manual_seed(DEC_SEED))
+    cache = M.init_cache(cfg2, b, page, device=CARD)
+    caches = model.init_caches(b, page)
+    dense, sparse = [], []
+    for i in range(steps):
+        ld, cache = M.decode_step(cfg2, masked, toks[:, i:i + 1], cache)
+        ls, caches = model.decode_step(model.arrays, toks[:, i:i + 1], caches,
+                                       torch.full((b,), i, device=CARD))
+        dense.append(ld.cpu())
+        sparse.append(ls.cpu())
+    rel_gate(torch.stack(sparse, 1), torch.stack(dense, 1),
+             f"{cfg.name} 2-layer SparseModel vs dense decode on masked "
+             f"params (B={b}, cache {page}, {steps} steps)", card)
+
+
+def serve_one(name: str, card: str) -> dict:
+    """16c for one config: seeded bfloat16 weights -> make_bundle at rho
+    0.5 -> SparseModel(impl="kernel") -> ServeEngine, 16 requests on 16
+    slots and on 4 (tokens equal) and in wave mode; launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fleet.task import TransformerTask
+    from repro_torch.serve import (ServeConfig, ServeEngine, SparseModel,
+                                   make_bundle)
+    cfg = get_config(name)
+    counters = serve_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    params = model_params(cfg, DEC_SEED + 4)
+    t0 = time.perf_counter()
+    bundle = make_bundle(TransformerTask(arch=cfg), params, SERVE_RHO)
+    torch.cuda.synchronize()
+    t_bundle = time.perf_counter() - t0
+    if counters["tile_norms"].launches != 1:
+        raise AssertionError(f"{name}: the bundle's ranking took "
+                             f"{counters['tile_norms'].launches} launches")
+    t0 = time.perf_counter()
+    model = SparseModel(cfg, bundle, device=CARD)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    rho = achieved_rho(bundle)
+    del bundle, params          # the float32 model holds what it serves
+    torch.cuda.empty_cache()
+    prompts = np.random.RandomState(DEC_SEED).randint(
+        0, cfg.vocab_size, (SERVED_REQUESTS, SERVED_PROMPT)).astype(np.int32)
+    page = SERVED_PROMPT + SERVED_NEW
+
+    def engine(slots):
+        return ServeEngine(model, ServeConfig(max_slots=slots, page_len=page,
+                                              max_new=SERVED_NEW))
+
+    t0 = time.perf_counter()
+    tokens = engine(SERVED_SLOTS).generate(prompts)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    few = engine(SERVED_FEW).generate(prompts[:SERVED_FEW_REQUESTS])
+    t_few = time.perf_counter() - t0
+    wave = engine(SERVED_SLOTS).generate_prefilled(prompts)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    steps = SERVED_PROMPT + SERVED_NEW - 1
+    log(f"  {name}: bundle {t_bundle:.2f} s (1 tile_norms launch, achieved "
+        f"rho {rho:.4f}), SparseModel {t_model:.2f} s; generate "
+        f"{SERVED_REQUESTS} x ({SERVED_PROMPT} + {SERVED_NEW}) on "
+        f"{SERVED_SLOTS} slots {t_gen:.2f} s ({t_gen * 1e3 / steps:.2f} ms a "
+        f"step, {SERVED_REQUESTS * SERVED_NEW / t_gen:.1f} tokens/s), "
+        f"{SERVED_FEW_REQUESTS} of them on {SERVED_FEW} slots {t_few:.2f} "
+        f"s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if not np.array_equal(tokens[:SERVED_FEW_REQUESTS], few):
+        raise AssertionError(f"{name}: tokens differ between "
+                             f"{SERVED_SLOTS} and {SERVED_FEW} slots")
+    log(f"  {name}: {SERVED_SLOTS}- and {SERVED_FEW}-slot tokens bitwise "
+        f"equal ({SERVED_FEW_REQUESTS} requests); wave mode equal on "
+        f"{int((wave == tokens).all(1).sum())}/{SERVED_REQUESTS} requests; "
+        f"launches {json.dumps(counts)}")
+    for k in ("block_sparse_matmul", "flash_prefill", "decode_attention"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{name}: {k} never launched")
+    caches = model.init_caches(SERVED_SLOTS, page)
+    tok = torch.as_tensor(prompts[:, :1], dtype=torch.long, device=CARD)
+    pos = torch.full((SERVED_SLOTS,), SERVED_PROMPT, device=CARD)
+    kernel_device_ms(lambda: model.decode_step(model.arrays, tok, caches, pos),
+                     f"{name} profiled decode step (B={SERVED_SLOTS})", card)
+    step_linears_ms(model, SERVED_SLOTS, name, card)
+    del model
+    torch.cuda.empty_cache()
+    dense_masked(cfg, card)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_gather(card: str) -> dict:
+    """16d: phase 6's smollm-135m bundle served by impl="gather" beside
+    "kernel": logits of 8 decode steps within TOL, a gather rerun bitwise,
+    ms a decode step of each.  Returns each impl's launches (the gather
+    impl's over its run and rerun)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fleet.task import TransformerTask
+    from repro_torch.serve import SparseModel, make_bundle
+    cfg = get_config("smollm-135m")
+    task = TransformerTask(arch=cfg)
+    params = task.init_params(
+        torch.Generator(device=CARD).manual_seed(SERVE_SEED))
+    bundle = make_bundle(task, params, SERVE_RHO)
+    toks = torch.as_tensor(np.random.RandomState(SERVE_SEED).randint(
+        0, cfg.vocab_size, (SERVE_BATCH, 8)), device=CARD)
+    counters = serve_counters()
+    counts = {"kernel": {k: 0 for k in counters},
+              "gather": {k: 0 for k in counters}}
+    out, served = {}, {}
+    for impl in ("kernel", "gather", "gather"):
+        for fn in counters.values():
+            fn.launches = 0
+        model = SparseModel(cfg, bundle, impl=impl, device=CARD)
+        caches = model.init_caches(SERVE_BATCH, SERVE_PAGE)
+        steps = []
+        for i in range(8):
+            lg, caches = model.decode_step(
+                model.arrays, toks[:, i:i + 1], caches,
+                torch.full((SERVE_BATCH,), i, device=CARD))
+            steps.append(lg)
+        run = torch.stack(steps, 1)
+        for k, fn in counters.items():
+            counts[impl][k] += fn.launches
+        if impl in out:
+            if not torch.equal(run, out[impl]):
+                raise AssertionError("gather rerun logits differ")
+            log("  gather rerun: logits bitwise equal over 8 steps")
+            continue
+        out[impl], served[impl] = run, (model, caches)
+    log(f"  launches by impl: {json.dumps(counts)}")
+    pos = torch.full((SERVE_BATCH,), 8, device=CARD)
+    step_ms = {impl: cuda_ms(lambda: m.decode_step(m.arrays, toks[:, :1], c,
+                                                   pos), 10)
+               for impl, (m, c) in served.items()}
+    log(f"  smollm-135m decode step (B={SERVE_BATCH}, CUDA events, host "
+        f"included): kernel {step_ms['kernel']:.3f} ms, gather "
+        f"{step_ms['gather']:.3f} ms [{card}]")
+    rel_gate(out["gather"].cpu(), out["kernel"].cpu(),
+             "gather vs kernel logits (8 steps)", card)
+    return counts
+
+
+def run_moe(card: str) -> None:
+    """16e: olmoe-1b-7b at full width: float32 (capacity factor 8, the
+    reference test's pin) teacher-forced decode vs forward; then its
+    bfloat16 config decoding greedily, timed, rerun bitwise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    base = get_config("olmoe-1b-7b")
+    cfg = base.replace(param_dtype="float32", compute_dtype="float32",
+                       moe_capacity_factor=8.0)
+    torch.cuda.reset_peak_memory_stats()
+    params = model_params(cfg, DEC_SEED + 6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=CARD,
+                         generator=torch.Generator(device=CARD)
+                         .manual_seed(DEC_SEED))
+    log(f"  {cfg.name}: {M.param_count(params)} params float32, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    dec = teacher_forced(cfg, params, toks, 16)
+    full, aux = M.forward(cfg, params, toks)
+    close_gate(dec, full.cpu(), "olmoe-1b-7b float32 decode vs forward "
+               "(2 x 16)", card)
+    if not torch.isfinite(aux):
+        raise AssertionError("non-finite MoE auxiliary loss")
+    del params, full, dec
+    torch.cuda.empty_cache()
+    params = model_params(base, DEC_SEED + 7)
+    timed_greedy(base, params, "olmoe-1b-7b bfloat16 decode", card)
+    del params
+    torch.cuda.empty_cache()
+
+
+def run_phase16(card: str) -> dict:
+    """Phase 16; returns the serving kernels' launches of 16c (both
+    configs) and of 16d."""
+    import torch
+    phase("  [16a] qwen2-7b dense decode")
+    run_dense_decode(card)
+    phase("  [16b] granite-3-2b rolling window")
+    run_windowed_decode(card)
+    served = {}
+    for name in SERVED_CONFIGS:
+        phase(f"  [16c] {name} served")
+        for k, n in serve_one(name, card).items():
+            served[k] = served.get(k, 0) + n
+    phase("  [16d] the gather impl")
+    gather = run_gather(card)
+    phase("  [16e] olmoe-1b-7b")
+    run_moe(card)
+    torch.cuda.empty_cache()
+    return {"served": served, "gather": gather}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2574,7 +3221,8 @@ def main() -> int:
         row["launches"] = counts[row["name"]]
 
     phase("[5] whole paths, card against CPU")
-    card_vs_cpu_paths(card)
+    moe_fleet = card_vs_cpu_paths(card)
+    rows[1]["moe_fleet_launches"] = moe_fleet["tile_norms"]
 
     phase("[6] serve smollm-135m")
     serve_counts = run_serve(card)
@@ -2622,6 +3270,14 @@ def main() -> int:
     for row in serve_rows:
         row["exported_serve_launches"] = exported[row["name"]]
     rows[1]["exported_serve_launches"] = exported["tile_norms"]
+
+    phase("[16] dense decode, the llama configs served, MoE")
+    p16 = run_phase16(card)
+    for row in serve_rows:
+        row["served_launches"] = p16["served"][row["name"]]
+        row["gather_launches"] = p16["gather"]["gather"][row["name"]]
+        row["gather_kernel_launches"] = p16["gather"]["kernel"][row["name"]]
+    rows[1]["served_launches"] = p16["served"]["tile_norms"]
     rows += serve_rows
 
     phase("[end]")

@@ -1,6 +1,6 @@
-"""Architecture registry.  The port carries the llama-family configs its
-serving path runs; the reference's other architectures raise
-``NotImplementedError`` naming the ROADMAP item that ports them."""
+"""Architecture registry.  The port carries the llama-family configs, dense
+and MoE; the reference's other architectures raise ``NotImplementedError``
+naming the ROADMAP item that ports them."""
 
 from __future__ import annotations
 
@@ -11,16 +11,16 @@ from repro_torch.configs.base import (ArchConfig, AttnSpec, BlockSpec,
 
 _ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
 }
 
 # the reference's other configs, and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "granite-3-2b": "Queue A, item 9 (other llama-family configs)",
-    "qwen2-7b": "Queue A, item 9 (other llama-family configs)",
     "xlstm-125m": "Queue A, item 10 (models/recurrent.py)",
     "recurrentgemma-2b": "Queue A, item 10 (models/recurrent.py)",
-    "olmoe-1b-7b": "Queue A, item 10 (models/moe.py)",
-    "grok-1-314b": "Queue A, item 10 (models/moe.py)",
     "minicpm3-4b": "Queue A, item 10 (MLA attention)",
     "llama-3.2-vision-11b": "Queue A, item 10 (cross attention)",
     "whisper-base": "Queue A, item 10 (encoder models)",

@@ -5,12 +5,12 @@ repeats a super-block of sub-blocks ``repeats`` times, and the stage's
 parameters carry a leading ``repeats`` dim on every leaf.  The parameter
 dtype is a name (``"bfloat16"``), mapped to a torch dtype by ``pdtype``.
 
-The port carries the fields of the llama-family decoders (attention + MLP
-blocks): widths, the parameter and compute dtypes, the window fields and
-the smoke-size reduction; the reference's recurrent, MoE, MLA and
-encoder / memory fields come with the slices that need them.
-``AttnSpec`` lives here too: the reference keeps it in
-``models/attention.py``.
+The port carries the fields of the llama-family decoders (attention and
+MLP or MoE blocks): widths, the parameter and compute dtypes, the window
+fields, the MoE spec and capacity factor, and the smoke-size reduction;
+the reference's recurrent, MLA and encoder / memory fields come with the
+slices that need them.  ``AttnSpec`` lives here too: the reference keeps
+it in ``models/attention.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.models.moe import MoESpec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -49,9 +51,9 @@ class AttnSpec:
 class BlockSpec:
     """One sub-block of a super-block.
 
-    kind: attn (the reference's other kinds are not ported: ROADMAP.md
-          Queue A, item 10)
-    ffn:  mlp | none
+    kind: attn | local_attn (the reference's other kinds are not ported:
+          ROADMAP.md Queue A, item 10)
+    ffn:  mlp | moe | none
     """
     kind: str
     ffn: str = "mlp"
@@ -92,8 +94,11 @@ class ArchConfig:
     local_window: int = 2048
     long_context_window: Optional[int] = 8192
 
+    moe: Optional[MoESpec] = None
+
     param_dtype: str = "float32"      # storage; the serving path runs float32
-    compute_dtype: str = "float32"    # activations of the training forward
+    compute_dtype: str = "float32"    # activations of the forward and decode
+    moe_capacity_factor: float = 1.25
 
     @property
     def head_dim_(self) -> int:
@@ -127,6 +132,13 @@ class ArchConfig:
                         self.rope_theta, qkv_bias=self.qkv_bias,
                         causal=True, window=window)
 
+    def moe_spec(self) -> MoESpec:
+        """The MoE spec with the config's capacity factor."""
+        if self.moe is None:
+            raise ValueError(f"{self.name} has no MoE spec")
+        return dataclasses.replace(self.moe,
+                                   capacity_factor=self.moe_capacity_factor)
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -134,7 +146,8 @@ class ArchConfig:
         """The reference's reduced config for CPU runs: one repeat of the
         first two stages (sub-blocks deduplicated by (kind, ffn), at most
         three), d_model <= 128, <= 4 heads (a multiple of the KV heads),
-        d_ff <= 256, vocab <= 512, float32 parameters and compute."""
+        d_ff <= 256, vocab <= 512, <= 4 experts of top-k <= 2 and width
+        <= 128, float32 parameters and compute."""
         small_stages = []
         for st in self.stages[:2]:
             seen, blocks = set(), []
@@ -147,9 +160,14 @@ class ArchConfig:
         heads = min(self.num_heads, 4)
         kv = min(self.num_kv_heads, heads)
         heads = (heads // kv) * kv if heads % kv else heads
-        return self.replace(
+        kw = dict(
             stages=tuple(small_stages), d_model=d_model, num_heads=heads,
             num_kv_heads=kv, head_dim=d_model // heads,
             d_ff=min(self.d_ff, 256) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
             param_dtype="float32", compute_dtype="float32")
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2), d_ff=min(self.moe.d_ff, 128))
+        return self.replace(**kw)

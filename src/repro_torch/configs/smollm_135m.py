@@ -7,5 +7,6 @@ CONFIG = ArchConfig(
     d_model=576, num_heads=9, num_kv_heads=3, d_ff=1536, vocab_size=49152,
     stages=(StageSpec(30, (BlockSpec("attn", "mlp"),)),),
     rope_theta=10000.0, act="silu", norm="rms",
-    param_dtype="bfloat16",
+    long_context_window=8192,
+    param_dtype="bfloat16", compute_dtype="bfloat16",
 )

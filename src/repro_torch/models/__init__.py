@@ -1,2 +1,3 @@
 """The paper's experiment models (the MLP classifier) and the llama-family
-decoder parameters the serving path runs."""
+decoder, dense or with a mixture of experts: init, forward, loss and the
+cached one-token decode."""

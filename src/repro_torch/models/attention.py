@@ -1,6 +1,12 @@
 """Grouped-query attention (the port of ``repro.models.attention`` for the
-llama family: its parameters and its full-sequence forward; ``AttnSpec``
-lives in ``configs.base``).
+llama family: its parameters, its full-sequence forward and its one-token
+decode against a KV cache; ``AttnSpec`` lives in ``configs.base``).
+
+Cache layout (the reference's): ``{"k", "v"}`` of (B, S, Hkv, hd) in the
+compute dtype, keys stored after RoPE.  A full cache writes position p at
+slot ``min(p, S - 1)``; a rolling cache (a window of at least S) writes it
+at ``p % S``.  The position of the token being decoded, ``pos`` (B,),
+travels beside the cache.
 
 The forward mirrors the reference's numerics: q, k and v are cast to
 float32 for the scores and the weighted sum, a mask enters as an additive
@@ -178,3 +184,45 @@ def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
                 if spec.causal else None)
         out = attend(q, k, v, mask, spec.scale)
     return L.dense(p["wo"], out.reshape(b, s, -1).to(x.dtype))
+
+
+def init_gqa_cache(spec: AttnSpec, batch: int, cache_len: int, dtype,
+                   device=None) -> dict:
+    shape = (batch, cache_len, spec.num_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(p: dict, spec: AttnSpec, x: torch.Tensor, cache: dict,
+               pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One-token decode; x: (B, 1, d), pos: (B,) the absolute position of
+    x.  Returns ``(y (B, 1, d), new cache)``; the caller's cache is not
+    written.  A full cache's last slot is overwritten once ``pos`` reaches
+    its length (the reference's clamp); a rolling cache (``spec.window``
+    at least its length) holds the last ``cache_len`` positions."""
+    b = x.shape[0]
+    cache_len = cache["k"].shape[1]
+    q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
+    k = _split_heads(L.dense(p["wk"], x), spec.num_kv_heads)
+    v = _split_heads(L.dense(p["wv"], x), spec.num_kv_heads)
+    if spec.use_rope:
+        q = L.apply_rope(q, pos[:, None], spec.rope_theta)
+        k = L.apply_rope(k, pos[:, None], spec.rope_theta)
+
+    rolling = spec.window is not None and cache_len <= spec.window
+    slot = (pos % cache_len if rolling
+            else torch.clamp_max(pos, cache_len - 1)).long()
+    rows = torch.arange(b, device=x.device)
+    new_k = cache["k"].index_put((rows, slot), k[:, 0].to(cache["k"].dtype))
+    new_v = cache["v"].index_put((rows, slot), v[:, 0].to(cache["v"].dtype))
+
+    kpos = torch.arange(cache_len, device=x.device)[None, :]
+    if rolling:
+        valid = kpos < torch.clamp_max(pos + 1, cache_len)[:, None]
+    else:
+        valid = kpos <= pos[:, None]
+        if spec.window is not None:
+            valid = valid & (kpos > pos[:, None] - spec.window)
+    out = attend(q, new_k, new_v, valid[:, None, None, :], spec.scale)
+    y = L.dense(p["wo"], out.reshape(b, 1, -1).to(x.dtype))
+    return y, {"k": new_k, "v": new_v}

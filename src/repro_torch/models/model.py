@@ -1,12 +1,14 @@
 """The llama-family decoder (the port of ``repro.models.model``): init,
-the full-sequence forward and the causal-LM loss.
+the full-sequence forward, the causal-LM loss and the dense one-token
+decode.
 
 Stage params carry a leading ``repeats`` dim on every leaf, as in the
 reference, whose layer stacks are scanned per stage; here the forward
-loops over the repeats (one ``unbind`` a stage leaf, so the backward
-stacks each leaf's per-layer gradients once).  The dense decode
-(``init_cache``, ``decode_step``) is not ported yet: ROADMAP.md Queue A,
-item 8c; the serving path decodes with ``serve.model.SparseModel``.
+and the decode loop over the repeats (one ``unbind`` a stage leaf, so the
+backward stacks each leaf's per-layer gradients once).  Decode caches
+stack the same way: ``{"pos": (B,), "stages": [...]}`` with a leading
+``repeats`` dim on every stage leaf.  The dense decode is the serving
+path's oracle: ``serve.model.SparseModel`` matches it on masked params.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import pruning
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -67,12 +71,17 @@ def param_count(params: PyTree) -> int:
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _unstack(tree) -> list:
+    """A stage's stacked tree -> one tree per repeat."""
+    leaves = [torch.unbind(leaf) for leaf in pruning.flatten(tree)]
+    return [pruning.unflatten(tree, [lv[r] for lv in leaves])
+            for r in range(len(leaves[0]))] if leaves else []
+
+
 def _stage_forward(cfg, stage, stage_params, x, positions):
     """The stage's super-block applied once per repeat, in order."""
-    leaves = [torch.unbind(leaf) for leaf in pruning.flatten(stage_params)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(stage.repeats):
-        layer = pruning.unflatten(stage_params, [lv[r] for lv in leaves])
+    for layer in _unstack(stage_params):
         for i, spec in enumerate(stage.blocks):
             x, a = B.apply_block(cfg, spec, layer[f"b{i}"], x, None,
                                  positions)
@@ -154,16 +163,49 @@ def loss_fn(cfg, params, batch: dict, aux_weight: float = 0.01
 # Decode
 # ---------------------------------------------------------------------------
 
-_ROADMAP_DECODE = "ROADMAP.md Queue A, item 8c (the model's dense decode)"
-
-
 def init_cache(cfg, batch: int, cache_len: int,
-               window: Optional[int] = None) -> dict:
-    raise NotImplementedError(f"init_cache is not ported yet: "
-                              f"{_ROADMAP_DECODE}")
+               window: Optional[int] = None, device=None) -> dict:
+    """Zeroed decode cache on ``device`` (the card unless ``"cpu"``);
+    every stage's leaves carry a leading repeats dim.  ``window`` enables
+    the rolling-buffer long-context variant."""
+    dev = resolve_device(device)
+    cache: dict = {"pos": torch.zeros((batch,), dtype=torch.int64,
+                                      device=dev), "stages": []}
+    for stage in cfg.stages:
+        one = {f"b{i}": B.init_block_cache(cfg, spec, batch, cache_len,
+                                           window, dev)
+               for i, spec in enumerate(stage.blocks)}
+        cache["stages"].append(pruning.tree_map(
+            lambda a: torch.zeros((stage.repeats,) + tuple(a.shape),
+                                  dtype=a.dtype, device=dev), one))
+    return cache
+
+
+def fill_cross_caches(cfg, params, cache: dict, memory: torch.Tensor):
+    raise NotImplementedError(f"fill_cross_caches is not ported yet: "
+                              f"{A._ROADMAP_CROSS}")
 
 
 def decode_step(cfg, params, token: torch.Tensor, cache: dict,
-                window: Optional[int] = None):
-    raise NotImplementedError(f"decode_step is not ported yet: "
-                              f"{_ROADMAP_DECODE}")
+                window: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+    """One serving step; token: (B, 1) integers at positions
+    ``cache["pos"]`` -> (logits (B, V) float32, the new cache).  The
+    given cache is not written."""
+    pos = cache["pos"]
+    x = L.embed(params["embed"], token, cfg.cdtype)
+    new_stages = []
+    for stage, stage_params, stage_cache in zip(cfg.stages, params["stages"],
+                                                cache["stages"]):
+        layers = []
+        for layer, lc in zip(_unstack(stage_params), _unstack(stage_cache)):
+            new_c = {}
+            for i, spec in enumerate(stage.blocks):
+                x, new_c[f"b{i}"] = B.apply_block_decode(
+                    cfg, spec, layer[f"b{i}"], x, lc[f"b{i}"], pos, window)
+            layers.append(new_c)
+        new_stages.append(pruning.unflatten(stage_cache, [
+            torch.stack(leaves) for leaves in
+            zip(*(pruning.flatten(c) for c in layers))]))
+    x = B.norm_apply(cfg, params["final_norm"], x)
+    return _unembed(cfg, params, x)[:, 0, :], {"pos": pos + 1,
+                                                "stages": new_stages}

@@ -6,7 +6,14 @@ prefill model whose every weight matrix, the tied unembedding included, is
 a ``sparse.make_linear`` layer over the tile grid the keeps were computed
 on.  The contract is dense-masked equivalence: outputs match the dense
 model on ``bundle.masked_params()`` up to float reassociation, while the
-kernels skip the dropped tiles.
+kernels skip the dropped tiles.  Stacked qkv biases are 2-D, (repeats,
+d), so pruning gives them tile keeps too: they are served masked, as the
+dense oracle sees them (the reference serves them unmasked, which departs
+from its own oracle once a bias tile is dropped).  Stacked norm scales
+get keeps the same way and are served unmasked, as the reference serves
+them: they equal the oracle's wherever no norm tile is dropped, which
+holds unless the repeats do not divide into whole tiles (ROADMAP.md
+Queue C).
 
 Layers are unrolled at build time (the stacked ``repeats`` dim of the
 training layout is sliced per layer).  A KV head whose ``wv`` columns are
@@ -92,6 +99,16 @@ class SparseModel:
             t = leaves[i] if r is None else leaves[i][r]
             return t.to(device=dev, dtype=torch.float32)
 
+        def masked_bias(i, r):
+            """A stacked bias leaf, (repeats, d), at layer ``r``, masked by
+            its keeps: pruning ranks it as a (repeats, d) matrix, and the
+            dense oracle sees it masked."""
+            t = leaf(i)
+            if keeps[i] is not None:
+                t = torch.where(_bsm.expand_mask(keeps[i].to(dev), t.shape,
+                                                 *grid[i]), t, 0.0)
+            return t[r]
+
         def keep(i, r=None):
             k = keeps[i]
             if k is None:
@@ -101,7 +118,7 @@ class SparseModel:
         def lin(pnode, inode, r=None):
             i = inode["w"]
             w, blk = leaf(i, r), grid[i]
-            bias = leaf(inode["b"], r) if "b" in pnode else None
+            bias = masked_bias(inode["b"], r) if "b" in pnode else None
             if blk is None:
                 blk = (w.shape[0], w.shape[1])
             return sparse.make_linear(w, keep(i, r), blk, impl=impl,

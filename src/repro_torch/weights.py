@@ -28,23 +28,31 @@ __all__ = ["tensor", "tree_from_numpy", "population_from_numpy",
            "run_start_from_numpy", "to_numpy", "bundle_from_numpy"]
 
 
-def tensor(a, dtype: torch.dtype = torch.float32, device=None
+def tensor(a, dtype: Optional[torch.dtype] = torch.float32, device=None
            ) -> torch.Tensor:
-    """One array -> tensor; integer arrays become int64."""
+    """One array -> tensor; integer arrays become int64, float arrays
+    ``dtype`` (``None``: their own, a bfloat16 array's included)."""
     a = np.array(a)  # a writable copy: arrays from JAX are read-only
     device = resolve_device(device)
     if np.issubdtype(a.dtype, np.integer):
         return torch.as_tensor(a.astype(np.int64), device=device)
-    return torch.as_tensor(a, device=device).to(dtype)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16: take its bits
+        t = torch.as_tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
+    else:
+        t = torch.as_tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
 
 
-def tree_from_numpy(tree, dtype: torch.dtype = torch.float32,
+def tree_from_numpy(tree, dtype: Optional[torch.dtype] = torch.float32,
                     device=None):
     """Nested dicts and lists of arrays -> the same structure of tensors:
     params (``{"layer{i}": {"w": (in, out), "b": (out,)}}``, or a
-    transformer's ``{"embed", "final_norm", "stages": [...]}``), task state
+    transformer's ``{"embed", "final_norm", "stages": [...]}``, MoE experts
+    and all), a decode cache (``{"pos", "stages"}``), task state
     (``templates``, ``x_test``, ``y_test``) or cached client batches
-    (``{"x": (n, batch, D), "y": (n, batch)}``)."""
+    (``{"x": (n, batch, D), "y": (n, batch)}``).  ``dtype=None`` keeps
+    each leaf's own: a bfloat16 model's float32 router stays float32."""
     if isinstance(tree, Mapping):
         return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -294,7 +294,7 @@ def test_apply_block_matches_reference(model_pair):
     got, aux_t = TB.apply_block(tcfg, spec, block_t, _t(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert float(aux_t) == float(aux_j) == 0.0
-    for kind, ffn in (("mlstm", "mlp"), ("attn", "moe")):
+    for kind, ffn in (("mlstm", "mlp"), ("mla", "mlp")):
         with pytest.raises(NotImplementedError, match="item 10"):
             TB.apply_block(tcfg, dataclasses.replace(spec, kind=kind,
                                                      ffn=ffn), block_t, _t(x))
