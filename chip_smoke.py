@@ -164,6 +164,24 @@ Phases (any failure exits non-zero and prints no result line):
                (capacity factor 8) decode vs forward within 2e-3, then
                its bfloat16 config greedy at B = 8, timed and rerun
                bitwise.
+ 17. the recurrent, MLA and memory models — one config at a time at full
+               width from seeded random weights in its own bfloat16, each
+               freed before the next: (a) xlstm-125m, (b)
+               recurrentgemma-2b, (c) minicpm3-4b, (d)
+               llama-3.2-vision-11b, (e) whisper-base; each decodes
+               greedily at B = 8 (32 prompt + 32 new tokens, cache 128;
+               d and e first fill their cross caches with
+               fill_cross_caches from seeded stub embeddings, (8, 1600,
+               4096) and (8, 1500, 512), e through its 6-layer encoder):
+               ms a step beside the byte bound of its weights and caches,
+               a profiled step's busy share, peak memory, rerun bitwise;
+               then one repeat of each stage in float32 (the depth cut)
+               teacher-forced over 12 tokens: decode vs forward within
+               2e-3 on the card, card vs CPU within TOL; (a) also trains
+               in float32 at full width by a 2 x 4 fleet
+               (TransformerTask(arch=...), the generic path), 2 rounds:
+               one grouped tile-norm launch a round over its 4-D and 3-D
+               leaves, rerun bitwise.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
@@ -175,8 +193,9 @@ also carry the launches of phases 7-15: ``telemetry_launches`` phase
 olmoe-1b-7b fleet; the serving rows and row 2 carry
 ``exported_serve_launches``, phase 15c's, and ``served_launches``, phase
 16c's; the serving rows ``gather_launches``, 16d's gather impl's, and
-``gather_kernel_launches``, 16d's kernel impl's); the last is the device
-JSON.
+``gather_kernel_launches``, 16d's kernel impl's; row 2
+``xlstm_fleet_launches``, 17a's fleet's, and ``xlstm_*``, the tile norms
+on 17a's ranking); the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -280,16 +299,23 @@ def smollm_ranking(param_dtype: str = "bfloat16") -> tuple[list, list]:
     fleet ranks every round (float32)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import pruning
     from repro_torch.fleet.task import TransformerTask
     task = TransformerTask(arch=get_config("smollm-135m").replace(
         param_dtype=param_dtype))
-    params = task.init_params(
-        torch.Generator(device="cuda").manual_seed(SERVE_SEED))
-    pairs = [(leaf, blk) for leaf, blk in
-             zip(pruning.flatten(params), task.tile_grid(params))
-             if blk is not None]
-    return [leaf for leaf, _ in pairs], [blk for _, blk in pairs]
+    return task_ranking(task, task.init_params(
+        torch.Generator(device="cuda").manual_seed(SERVE_SEED)))
+
+
+def task_ranking(task, params) -> tuple[list, list]:
+    """The leaves of ``params`` and their (bk, bn) tiles that ``task``'s
+    round ranks in its one tile-norm launch (the selection of
+    ``pruning.block_norm_state``)."""
+    from repro_torch.core import pruning
+    leaves = pruning.flatten(params)
+    flags = [pruning.prunable((), w) for w in leaves]
+    blocks = pruning.leaf_blocks(flags, task.tile_grid(params))
+    return ([w for w, f in zip(leaves, flags) if f],
+            [b for b in blocks if b is not None])
 
 
 def norms_regime(what: str, leaves, blocks, iters: int, plain_iters: int,
@@ -2714,13 +2740,17 @@ def on_device(tree, device: str):
     return pruning.tree_map(lambda a: a.to(device), tree)
 
 
-def teacher_forced(cfg, params, toks, cache_len: int, window=None):
+def teacher_forced(cfg, params, toks, cache_len: int, window=None,
+                   memory=None):
     """Logits (B, T, V) of feeding ``toks`` one at a time through
-    ``decode_step``, on the tokens' device, brought to the CPU."""
+    ``decode_step`` (the cross caches filled from ``memory`` first, where
+    given), on the tokens' device, brought to the CPU."""
     import torch
     from repro_torch.models import model as M
     cache = M.init_cache(cfg, toks.shape[0], cache_len, window=window,
                          device=toks.device)
+    if memory is not None:
+        cache = M.fill_cross_caches(cfg, params, cache, memory)
     out = []
     for t in range(toks.shape[1]):
         logits, cache = M.decode_step(cfg, params, toks[:, t:t + 1], cache,
@@ -2729,15 +2759,19 @@ def teacher_forced(cfg, params, toks, cache_len: int, window=None):
     return torch.stack(out, 1)
 
 
-def greedy(cfg, params, prompts, new: int, cache_len: int):
-    """Prompts (B, P) fed through ``decode_step``, then ``new`` greedy
-    tokens; returns (tokens (B, new) on the CPU, each step's wall in ms,
-    the last token and cache)."""
+def greedy(cfg, params, prompts, new: int, cache_len: int, memory=None):
+    """Prompts (B, P) fed through ``decode_step`` (the cross caches filled
+    from ``memory`` first, where given), then ``new`` greedy tokens;
+    returns (tokens (B, new) on the CPU, each step's wall in ms, the last
+    token and cache).  Fails on a non-finite logit."""
     import torch
     from repro_torch.models import model as M
     b, p = prompts.shape
     cache = M.init_cache(cfg, b, cache_len, device=prompts.device)
+    if memory is not None:
+        cache = M.fill_cross_caches(cfg, params, cache, memory)
     tok, out, walls = prompts[:, :1], [], []
+    finite = torch.ones((), dtype=torch.bool, device=prompts.device)
     for t in range(p + new - 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2746,8 +2780,11 @@ def greedy(cfg, params, prompts, new: int, cache_len: int):
             else torch.argmax(logits, -1, keepdim=True)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        finite = finite & torch.isfinite(logits).all()
         if t + 1 >= p:
             out.append(tok)
+    if not bool(finite):
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
     return torch.cat(out, 1).cpu(), walls, tok, cache
 
 
@@ -2775,10 +2812,11 @@ def tree_bytes(tree) -> int:
     return sum(a.numel() * a.element_size() for a in pruning.flatten(tree))
 
 
-def timed_greedy(cfg, params, what: str, card: str) -> None:
+def timed_greedy(cfg, params, what: str, card: str, memory=None) -> None:
     """``DEC_BATCH`` prompts through ``greedy`` twice (tokens bitwise
     equal), the step walls' median, tokens/s, peak memory and a profiled
-    step."""
+    step; a memory model's cross caches filled from ``memory`` (its
+    ``fill_cross_caches`` timed)."""
     import numpy as np
     import torch
     prompt_len = DEC_PROMPT if cfg.moe is None else MOE_PROMPT
@@ -2786,15 +2824,23 @@ def timed_greedy(cfg, params, what: str, card: str) -> None:
     prompts = torch.as_tensor(np.random.RandomState(DEC_SEED).randint(
         0, cfg.vocab_size, (DEC_BATCH, prompt_len)), device=CARD)
     torch.cuda.reset_peak_memory_stats()
-    tokens, walls, tok, cache = greedy(cfg, params, prompts, new, DEC_CACHE)
-    again, walls2, *_ = greedy(cfg, params, prompts, new, DEC_CACHE)
+    tokens, walls, tok, cache = greedy(cfg, params, prompts, new, DEC_CACHE,
+                                       memory)
+    again, walls2, *_ = greedy(cfg, params, prompts, new, DEC_CACHE, memory)
     med = float(np.median(walls[1:] + walls2))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    # a step reads every weight and the cache once and writes the cache;
-    # of an untied embedding it gathers B rows
-    nbytes = tree_bytes(params) + 2 * tree_bytes(cache["stages"])
-    if not cfg.tie_embeddings:
-        nbytes -= tree_bytes(params["embed"])
+    # a step reads every decoder weight and the cache once and writes the
+    # cache but the cross caches (fill_cross_caches writes those); of an
+    # untied embedding it gathers B rows; the memory projection and the
+    # encoder run only in fill_cross_caches
+    cross = sum(tree_bytes(sc[f"b{i}"])
+                for stage, sc in zip(cfg.stages, cache["stages"])
+                for i, spec in enumerate(stage.blocks)
+                if spec.kind == "cross_attn")
+    nbytes = tree_bytes(params) + 2 * tree_bytes(cache["stages"]) - cross
+    for key in ("embed",) * (not cfg.tie_embeddings) + ("memory_proj",
+                                                         "encoder"):
+        nbytes -= tree_bytes(params.get(key))
     log(f"  {what}: B={DEC_BATCH}, {prompt_len} prompt + {new} greedy "
         f"tokens, cache {DEC_CACHE}: {med:.2f} ms a step (median of "
         f"{len(walls) - 1 + len(walls2)}; first {walls[0]:.1f} ms), "
@@ -2805,6 +2851,14 @@ def timed_greedy(cfg, params, what: str, card: str) -> None:
         raise AssertionError(f"{what}: rerun tokens differ")
     log(f"  {what}: rerun tokens bitwise equal ({tuple(tokens.shape)})")
     from repro_torch.models import model as M
+    if memory is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.fill_cross_caches(cfg, params, cache, memory)
+        torch.cuda.synchronize()
+        log(f"  {what}: fill_cross_caches from {tuple(memory.shape)} stub "
+            f"embeddings {(time.perf_counter() - t0) * 1e3:.2f} ms (warm) "
+            f"[{card}]")
     profile_device(lambda: M.decode_step(cfg, params, tok, cache),
                    f"{what} step", card)
 
@@ -3168,6 +3222,145 @@ def run_phase16(card: str) -> dict:
     return {"served": served, "gather": gather}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the recurrent, MLA and memory models at full width
+# ---------------------------------------------------------------------------
+
+P17 = ("xlstm-125m", "recurrentgemma-2b", "minicpm3-4b",
+       "llama-3.2-vision-11b", "whisper-base")
+GATE_BATCH, GATE_STEPS = 2, 12
+XLSTM_CELLS, XLSTM_PER_CELL, XLSTM_ROUNDS = 2, 4, 2
+
+
+def stub_memory(cfg, batch: int, seed: int, device):
+    """Seeded stub frontend embeddings (batch, num_memory_tokens,
+    memory_dim) in float32, or None for a model without memory."""
+    import torch
+    if not cfg.num_memory_tokens:
+        return None
+    return torch.randn((batch, cfg.num_memory_tokens, cfg.memory_dim_),
+                       generator=torch.Generator(device=device)
+                       .manual_seed(seed), device=device)
+
+
+def one_repeat(cfg):
+    """``cfg`` at full width cut to one repeat of each stage (the encoder
+    kept), float32 parameters and compute."""
+    import dataclasses
+    return cfg.replace(stages=tuple(dataclasses.replace(s, repeats=1)
+                                    for s in cfg.stages),
+                       param_dtype="float32", compute_dtype="float32")
+
+
+def p17_gates(cfg, seed: int, card: str) -> None:
+    """The depth cut's gates: teacher-forced decode (cross caches filled
+    from stub memory) against ``forward`` on the card within 2e-3, and
+    the decode's logits on the card against the CPU within ``TOL``, from
+    the same params (drawn on the CPU)."""
+    import torch
+    from repro_torch.models import model as M
+    cut = one_repeat(cfg)
+    params = model_params(cut, seed, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (GATE_BATCH, GATE_STEPS),
+                         generator=torch.Generator().manual_seed(seed))
+    mem = stub_memory(cut, GATE_BATCH, seed, "cpu")
+    card_params = on_device(params, CARD)
+    card_mem = None if mem is None else mem.to(CARD)
+    dec = teacher_forced(cut, card_params, toks.to(CARD), GATE_STEPS,
+                         memory=card_mem)
+    full, _ = M.forward(cut, card_params, toks.to(CARD), card_mem)
+    what = (f"{cfg.name} {cut.num_layers}-layer float32 cut "
+            f"({M.param_count(params)} params, "
+            f"{tree_bytes(params) / 1e9:.2f} GB)")
+    close_gate(dec, full.cpu(), f"{what} decode vs forward "
+               f"({GATE_BATCH} x {GATE_STEPS}, card)", card)
+    del card_params, card_mem, full
+    torch.cuda.empty_cache()
+    rel_gate(dec, teacher_forced(cut, params, toks, GATE_STEPS, memory=mem),
+             f"{what} decode card vs CPU", card)
+
+
+def run_xlstm_fleet(card: str, floor_ms: float) -> tuple[dict, dict]:
+    """17a's fleet: xlstm-125m at full width in float32 trained by 2 x 4
+    clients (TransformerTask(arch=...), kernel="fused": the generic
+    path), 2 rounds: one grouped tile-norm launch a round over its 4-D
+    recurrence matrices, 3-D conv weights and stacked vectors, no fused
+    launch, finite losses, rerun bitwise.  Before the rounds the tile-norm
+    kernel is held against its plain version on exactly those leaves and
+    tiles (``norms_regime``).  Returns the rounds' launches and the
+    regime's figures."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import pruning
+    from repro_torch.fleet import (FleetConfig, FleetTopology, TransformerTask,
+                                   build_simulation)
+    arch = get_config("xlstm-125m").replace(param_dtype="float32",
+                                            compute_dtype="float32")
+    cfg = FleetConfig(task=TransformerTask(arch=arch, seq_len=16,
+                                           local_batch=2, pool_clients=8),
+                      topology=FleetTopology(XLSTM_CELLS, XLSTM_PER_CELL),
+                      kernel="fused", rounds=XLSTM_ROUNDS)
+    torch.cuda.reset_peak_memory_stats()
+    sim = build_simulation(cfg)
+    leaves = pruning.flatten(sim.params)
+    log(f"  xlstm-125m fleet: {XLSTM_CELLS} x {XLSTM_PER_CELL} clients, "
+        f"{sum(a.numel() for a in leaves)} params float32, prunable leaves "
+        f"by rank {json.dumps({d: sum(a.ndim == d for a in leaves) for d in (2, 3, 4)})}")
+    ranked, blocks = task_ranking(cfg.task, sim.params)
+    regime = norms_regime("xlstm-125m float32 (17a's ranking)", ranked,
+                          blocks, 20, 3, floor_ms, card)
+    del ranked
+    _, metrics, walls, steps, _ = drive(sim, "xlstm round", card)
+    check_steps("xlstm round", steps, {"fleet_fused_grads": 0,
+                                       "tile_norms": 1})
+    counts = fleet_counts()
+    log(f"  xlstm-125m fleet: walls {fmt_walls(walls)}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+    rerun_bitwise(cfg, "sync", metrics["loss"].cpu().tolist(),
+                  "xlstm-125m fleet")
+    del sim
+    torch.cuda.empty_cache()
+    return counts, regime
+
+
+def run_p17_model(name: str, seed: int, card: str) -> None:
+    """One phase-17 model at full width from seeded random weights in its
+    own dtype: the dense decode timed (``timed_greedy``; a memory model's
+    cross caches from seeded stub embeddings), freed, then the depth
+    cut's gates."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = model_params(cfg, seed)
+    torch.cuda.synchronize()
+    log(f"  {name}: {cfg.num_layers} layers "
+        f"{[(s.repeats, [b.kind for b in s.blocks]) for s in cfg.stages]}, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{M.param_count(params)} params {cfg.param_dtype} "
+        f"({tree_bytes(params) / 1e9:.3f} GB), drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    memory = stub_memory(cfg, DEC_BATCH, seed, CARD)
+    timed_greedy(cfg, params, f"{name} dense decode", card, memory)
+    del params, memory
+    torch.cuda.empty_cache()
+    p17_gates(cfg, seed + 1, card)
+    torch.cuda.empty_cache()
+
+
+def run_phase17(card: str, floor_ms: float) -> tuple[dict, dict]:
+    """Phase 17; returns 17a's fleet launches and its ranking's tile-norm
+    figures."""
+    fleet = None
+    for i, name in enumerate(P17):
+        phase(f"  [17{'abcde'[i]}] {name}")
+        run_p17_model(name, DEC_SEED + 20 + 2 * i, card)
+        if name == "xlstm-125m":
+            fleet = run_xlstm_fleet(card, floor_ms)
+    return fleet
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3278,6 +3471,14 @@ def main() -> int:
         row["gather_launches"] = p16["gather"]["gather"][row["name"]]
         row["gather_kernel_launches"] = p16["gather"]["kernel"][row["name"]]
     rows[1]["served_launches"] = p16["served"]["tile_norms"]
+
+    phase("[17] the recurrent, MLA and memory models at full width")
+    p17, xlstm = run_phase17(card, rows[1]["launch_floor_ms"])
+    rows[1]["xlstm_fleet_launches"] = p17["tile_norms"]
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                 xlstm["max_abs_err"])
+    rows[1].update({f"xlstm_{k}": v for k, v in xlstm.items()
+                    if k != "max_abs_err"})
     rows += serve_rows
 
     phase("[end]")

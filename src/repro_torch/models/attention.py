@@ -1,12 +1,17 @@
-"""Grouped-query attention (the port of ``repro.models.attention`` for the
-llama family: its parameters, its full-sequence forward and its one-token
-decode against a KV cache; ``AttnSpec`` lives in ``configs.base``).
+"""Attention (the port of ``repro.models.attention``): grouped-query
+attention, global, sliding-window or cross, and multi-head latent
+attention (MLA), each with its parameters, its full-sequence forward and
+its one-token decode; ``AttnSpec`` and ``MLASpec`` live in
+``configs.base``.
 
-Cache layout (the reference's): ``{"k", "v"}`` of (B, S, Hkv, hd) in the
-compute dtype, keys stored after RoPE.  A full cache writes position p at
-slot ``min(p, S - 1)``; a rolling cache (a window of at least S) writes it
-at ``p % S``.  The position of the token being decoded, ``pos`` (B,),
-travels beside the cache.
+Cache layouts (the reference's), in the compute dtype:
+  * GQA ``{"k", "v"}`` of (B, S, Hkv, hd), keys stored after RoPE;
+  * MLA's latent cache ``{"ckv": (B, S, kv_rank), "kpe": (B, S,
+    rope_dim)}``;
+  * a cross-attention block's static memory K/V (``cross_memory``).
+A full cache writes position p at slot ``min(p, S - 1)``; a rolling cache
+(a window of at least S) writes it at ``p % S``.  The position of the
+token being decoded, ``pos`` (B,), travels beside the cache.
 
 The forward mirrors the reference's numerics: q, k and v are cast to
 float32 for the scores and the weighted sum, a mask enters as an additive
@@ -24,15 +29,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import AttnSpec
+from repro_torch.configs.base import AttnSpec, MLASpec
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
 
 # sequences at/above this length route through flash_attention
 FLASH_THRESHOLD = 2048
-
-_ROADMAP_CROSS = "ROADMAP.md Queue A, item 10 (cross attention)"
 
 
 def init_gqa(generator, d_model: int, spec: AttnSpec, dtype) -> dict:
@@ -163,25 +166,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill); x: (B, S, d)."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            f"cross attention is not ported yet: {_ROADMAP_CROSS}")
+    """Full-sequence attention (training / prefill); x: (B, S, d).
+    ``kv_x`` (B, T, d) is the keys' and values' source for cross attention
+    (no RoPE, no mask); None: x itself.  Cross attention takes the flash
+    path, non-causal, once S * T reaches ``FLASH_THRESHOLD ** 2``."""
     b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
-    k = _split_heads(L.dense(p["wk"], x), spec.num_kv_heads)
-    v = _split_heads(L.dense(p["wv"], x), spec.num_kv_heads)
-    if spec.use_rope:
+    k = _split_heads(L.dense(p["wk"], src), spec.num_kv_heads)
+    v = _split_heads(L.dense(p["wv"], src), spec.num_kv_heads)
+    if spec.use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q = L.apply_rope(q, positions, spec.rope_theta)
         k = L.apply_rope(k, positions, spec.rope_theta)
-    if s >= FLASH_THRESHOLD:
+    if kv_x is None and s >= FLASH_THRESHOLD:
         out = flash_attention(q, k, v, spec.scale, causal=spec.causal,
                               window=spec.window)
+    elif kv_x is not None and s * src.shape[1] >= FLASH_THRESHOLD ** 2:
+        out = flash_attention(q, k, v, spec.scale, causal=False, window=None)
     else:
         mask = (causal_window_mask(s, s, 0, spec.window, x.device)
-                if spec.causal else None)
+                if spec.causal and kv_x is None else None)
         out = attend(q, k, v, mask, spec.scale)
     return L.dense(p["wo"], out.reshape(b, s, -1).to(x.dtype))
 
@@ -191,6 +197,25 @@ def init_gqa_cache(spec: AttnSpec, batch: int, cache_len: int, dtype,
     shape = (batch, cache_len, spec.num_kv_heads, spec.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _slot(pos: torch.Tensor, cache_len: int, rolling: bool) -> torch.Tensor:
+    """The cache slot of position ``pos``: ``pos % cache_len`` in a
+    rolling cache, else ``min(pos, cache_len - 1)``."""
+    return (pos % cache_len if rolling
+            else torch.clamp_max(pos, cache_len - 1)).long()
+
+
+def _valid_keys(pos: torch.Tensor, cache_len: int, rolling: bool,
+                window: Optional[int]) -> torch.Tensor:
+    """(B, T): the cache slots the token at ``pos`` attends to."""
+    kpos = torch.arange(cache_len, device=pos.device)[None, :]
+    if rolling:
+        return kpos < torch.clamp_max(pos + 1, cache_len)[:, None]
+    valid = kpos <= pos[:, None]
+    if window is not None:
+        valid = valid & (kpos > pos[:, None] - window)
+    return valid
 
 
 def gqa_decode(p: dict, spec: AttnSpec, x: torch.Tensor, cache: dict,
@@ -210,19 +235,139 @@ def gqa_decode(p: dict, spec: AttnSpec, x: torch.Tensor, cache: dict,
         k = L.apply_rope(k, pos[:, None], spec.rope_theta)
 
     rolling = spec.window is not None and cache_len <= spec.window
-    slot = (pos % cache_len if rolling
-            else torch.clamp_max(pos, cache_len - 1)).long()
+    slot = _slot(pos, cache_len, rolling)
     rows = torch.arange(b, device=x.device)
     new_k = cache["k"].index_put((rows, slot), k[:, 0].to(cache["k"].dtype))
     new_v = cache["v"].index_put((rows, slot), v[:, 0].to(cache["v"].dtype))
-
-    kpos = torch.arange(cache_len, device=x.device)[None, :]
-    if rolling:
-        valid = kpos < torch.clamp_max(pos + 1, cache_len)[:, None]
-    else:
-        valid = kpos <= pos[:, None]
-        if spec.window is not None:
-            valid = valid & (kpos > pos[:, None] - spec.window)
+    valid = _valid_keys(pos, cache_len, rolling, spec.window)
     out = attend(q, new_k, new_v, valid[:, None, None, :], spec.scale)
     y = L.dense(p["wo"], out.reshape(b, 1, -1).to(x.dtype))
     return y, {"k": new_k, "v": new_v}
+
+
+def cross_decode(p: dict, spec: AttnSpec, x: torch.Tensor,
+                 memory_k: torch.Tensor, memory_v: torch.Tensor
+                 ) -> torch.Tensor:
+    """One-token cross attention against the precomputed memory K/V."""
+    b = x.shape[0]
+    q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
+    out = attend(q, memory_k, memory_v, None, spec.scale)
+    return L.dense(p["wo"], out.reshape(b, 1, -1).to(x.dtype))
+
+
+def cross_memory(p: dict, spec: AttnSpec, memory: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B, T, Hkv, hd) of encoder or vision memory."""
+    k = _split_heads(L.dense(p["wk"], memory), spec.num_kv_heads)
+    v = _split_heads(L.dense(p["wv"], memory), spec.num_kv_heads)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator, d_model: int, spec: MLASpec, dtype) -> dict:
+    h, qr, kvr = spec.num_heads, spec.q_lora_rank, spec.kv_lora_rank
+    qd = spec.nope_dim + spec.rope_dim
+    dev = L.device_of(generator)
+    return {
+        "wq_down": L.dense_init(generator, d_model, qr, dtype),
+        "q_norm": L.norm_init(qr, dtype, device=dev),
+        "wq_up": L.dense_init(generator, qr, h * qd, dtype),
+        "wkv_down": L.dense_init(generator, d_model, kvr, dtype),
+        "kv_norm": L.norm_init(kvr, dtype, device=dev),
+        "wk_pe": L.dense_init(generator, d_model, spec.rope_dim, dtype),
+        "wk_up": L.dense_init(generator, kvr, h * spec.nope_dim, dtype),
+        "wv_up": L.dense_init(generator, kvr, h * spec.v_head_dim, dtype),
+        "wo": L.dense_init(generator, h * spec.v_head_dim, d_model, dtype),
+    }
+
+
+def _mla_qkv(p: dict, spec: MLASpec, x: torch.Tensor,
+             positions: torch.Tensor):
+    """The shared projections: (q_nope, q_pe, ckv, k_pe)."""
+    b, s, _ = x.shape
+    q = L.dense(p["wq_up"], L.rms_norm(p["q_norm"], L.dense(p["wq_down"], x)))
+    q = q.reshape(b, s, spec.num_heads, spec.nope_dim + spec.rope_dim)
+    q_nope, q_pe = q[..., :spec.nope_dim], q[..., spec.nope_dim:]
+    q_pe = L.apply_rope(q_pe, positions, spec.rope_theta)
+    ckv = L.rms_norm(p["kv_norm"], L.dense(p["wkv_down"], x))   # (B,S,kvr)
+    k_pe = L.dense(p["wk_pe"], x)[:, :, None, :]                # (B,S,1,rope)
+    k_pe = L.apply_rope(k_pe, positions, spec.rope_theta)[:, :, 0, :]
+    return q_nope, q_pe, ckv, k_pe
+
+
+def mla_forward(p: dict, spec: MLASpec, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training / prefill MLA in the expanded form (per-head keys and
+    values); ``flash_attention`` at ``FLASH_THRESHOLD`` tokens or more."""
+    b, s, _ = x.shape
+    h = spec.num_heads
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q_nope, q_pe, ckv, k_pe = _mla_qkv(p, spec, x, positions)
+    k_nope = L.dense(p["wk_up"], ckv).reshape(b, s, h, spec.nope_dim)
+    v = L.dense(p["wv_up"], ckv).reshape(b, s, h, spec.v_head_dim)
+    if s >= FLASH_THRESHOLD:
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+            b, s, h, spec.rope_dim)], dim=-1)
+        out = flash_attention(q_full, k_full, v, spec.scale, causal=True,
+                              window=spec.window)
+    else:
+        f32 = torch.float32
+        scores = (torch.einsum("bshd,bthd->bsht", q_nope.to(f32),
+                               k_nope.to(f32))
+                  + torch.einsum("bshd,btd->bsht", q_pe.to(f32),
+                                 k_pe.to(f32))) * spec.scale
+        mask = causal_window_mask(s, s, 0, spec.window, x.device)
+        probs = torch.softmax(scores + _mask_bias(mask), dim=-1)
+        out = torch.einsum("bsht,bthd->bshd", probs, v.to(f32))
+    return L.dense(p["wo"], out.reshape(b, s, -1).to(x.dtype))
+
+
+def init_mla_cache(spec: MLASpec, batch: int, cache_len: int, dtype,
+                   device=None) -> dict:
+    return {"ckv": torch.zeros((batch, cache_len, spec.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kpe": torch.zeros((batch, cache_len, spec.rope_dim),
+                               dtype=dtype, device=device)}
+
+
+def mla_decode(p: dict, spec: MLASpec, x: torch.Tensor, cache: dict,
+               pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One-token MLA decode in the absorbed form: only the latent
+    ``(ckv, kpe)`` cache is read; ``W_uk`` folds into the query and
+    ``W_uv`` into the output, so a step costs O(S (kv_rank + rope_dim))
+    a head.  Slots as in ``gqa_decode``; the given cache is not
+    written."""
+    b = x.shape[0]
+    h = spec.num_heads
+    f32 = torch.float32
+    cache_len = cache["ckv"].shape[1]
+    q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(p, spec, x, pos[:, None])
+    # absorb W_uk: q_lat[h, kvr] = q_nope[h, nope] @ W_uk[kvr, h*nope]^T
+    wk = p["wk_up"]["w"].reshape(spec.kv_lora_rank, h, spec.nope_dim)
+    q_lat = torch.einsum("bshd,khd->bshk", q_nope.to(f32), wk.to(f32))
+
+    rolling = spec.window is not None and cache_len <= spec.window
+    slot = _slot(pos, cache_len, rolling)
+    rows = torch.arange(b, device=x.device)
+    ckv = cache["ckv"].index_put((rows, slot),
+                                 ckv_new[:, 0].to(cache["ckv"].dtype))
+    kpe = cache["kpe"].index_put((rows, slot),
+                                 kpe_new[:, 0].to(cache["kpe"].dtype))
+
+    scores = (torch.einsum("bshk,btk->bsht", q_lat, ckv.to(f32))
+              + torch.einsum("bshd,btd->bsht", q_pe.to(f32), kpe.to(f32))
+              ) * spec.scale
+    valid = _valid_keys(pos, cache_len, rolling, spec.window)
+    probs = torch.softmax(scores + _mask_bias(valid[:, None, None, :]),
+                          dim=-1)
+    out_lat = torch.einsum("bsht,btk->bshk", probs, ckv.to(f32))
+    # absorb W_uv: out[h, vd] = out_lat[h, kvr] @ W_uv[kvr, h*vd]
+    wv = p["wv_up"]["w"].reshape(spec.kv_lora_rank, h, spec.v_head_dim)
+    out = torch.einsum("bshk,khd->bshd", out_lat, wv.to(f32))
+    y = L.dense(p["wo"], out.reshape(b, 1, -1).to(x.dtype))
+    return y, {"ckv": ckv, "kpe": kpe}

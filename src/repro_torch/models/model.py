@@ -1,6 +1,7 @@
-"""The llama-family decoder (the port of ``repro.models.model``): init,
-the full-sequence forward, the causal-LM loss and the dense one-token
-decode.
+"""Model orchestration (the port of ``repro.models.model``): init, the
+full-sequence forward, the causal-LM loss, the dense one-token decode
+and the cross-attention caches, for every architecture an
+``ArchConfig`` describes.
 
 Stage params carry a leading ``repeats`` dim on every leaf, as in the
 reference, whose layer stacks are scanned per stage; here the forward
@@ -9,14 +10,22 @@ backward stacks each leaf's per-layer gradients once).  Decode caches
 stack the same way: ``{"pos": (B,), "stages": [...]}`` with a leading
 ``repeats`` dim on every stage leaf.  The dense decode is the serving
 path's oracle: ``serve.model.SparseModel`` matches it on masked params.
+
+A model with ``num_memory_tokens`` takes stub frontend embeddings
+(``memory``, (B, T, memory_dim)): ``memory_proj`` maps them to d_model
+and, with ``encoder_layers``, a bidirectional encoder runs over them; its
+cross-attention blocks attend to the result.  Without memory those
+blocks attend over the tokens themselves, unmasked, as in the reference.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
 
+from repro_torch.configs.base import BlockSpec, StageSpec
 from repro_torch.core import pruning
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -35,20 +44,32 @@ _LOSS_CHUNK = 512
 # Init
 # ---------------------------------------------------------------------------
 
+def _stack(trees: list):
+    """Trees of one structure -> one tree, each leaf stacked on a new
+    leading dim."""
+    return pruning.unflatten(trees[0], [
+        torch.stack(leaves) for leaves in
+        zip(*(pruning.flatten(tree) for tree in trees))])
+
+
 def _init_stage(cfg, stage, generator) -> dict:
     """Stacked params: every leaf gets leading dim ``stage.repeats``."""
-    layers = [{f"b{i}": B.init_block(cfg, spec, generator)
-               for i, spec in enumerate(stage.blocks)}
-              for _ in range(stage.repeats)]
-    stacked = [torch.stack(leaves) for leaves in
-               zip(*(pruning.flatten(layer) for layer in layers))]
-    return pruning.unflatten(layers[0], stacked)
+    return _stack([{f"b{i}": B.init_block(cfg, spec, generator)
+                    for i, spec in enumerate(stage.blocks)}
+                   for _ in range(stage.repeats)])
+
+
+def _encoder(cfg):
+    """The encoder's config (no qkv bias) and its stage of bidirectional
+    attention blocks with MLPs."""
+    return (cfg.replace(qkv_bias=False),
+            StageSpec(cfg.encoder_layers, (BlockSpec("attn", "mlp"),)))
 
 
 def init_params(cfg, generator) -> dict:
-    """``{"embed", "final_norm", "stages"[, "unembed"]}`` in
-    ``cfg.param_dtype`` on the generator's device (``generator=None``:
-    ``meta`` tensors, shapes only)."""
+    """``{"embed", "final_norm", "stages"[, "unembed"][, "memory_proj"]
+    [, "encoder"]}`` in ``cfg.param_dtype`` on the generator's device
+    (``generator=None``: ``meta`` tensors, shapes only)."""
     params: dict = {
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model,
                               cfg.pdtype),
@@ -60,6 +81,17 @@ def init_params(cfg, generator) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(generator, cfg.d_model,
                                          cfg.vocab_size, cfg.pdtype)
+    if cfg.num_memory_tokens > 0:
+        params["memory_proj"] = L.dense_init(generator, cfg.memory_dim_,
+                                             cfg.d_model, cfg.pdtype)
+    if cfg.encoder_layers > 0:
+        enc_cfg, enc_stage = _encoder(cfg)
+        params["encoder"] = {
+            "stage": _init_stage(enc_cfg, enc_stage, generator),
+            "norm": L.norm_init(cfg.d_model, cfg.pdtype,
+                                bias=(cfg.norm == "ln"),
+                                device=L.device_of(generator)),
+        }
     return params
 
 
@@ -78,27 +110,58 @@ def _unstack(tree) -> list:
             for r in range(len(leaves[0]))] if leaves else []
 
 
-def _stage_forward(cfg, stage, stage_params, x, positions):
+def _stage_forward(cfg, stage, stage_params, x, memory, positions):
     """The stage's super-block applied once per repeat, in order."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in _unstack(stage_params):
         for i, spec in enumerate(stage.blocks):
-            x, a = B.apply_block(cfg, spec, layer[f"b{i}"], x, None,
+            x, a = B.apply_block(cfg, spec, layer[f"b{i}"], x, memory,
                                  positions)
             aux = aux + a
     return x, aux
 
 
-def hidden_states(cfg, params, tokens: torch.Tensor
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def _encode_memory(cfg, params, memory_raw: Optional[torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+    """Stub-frontend embeddings (B, T, memory_dim) -> model-space memory
+    (B, T, d_model): ``memory_proj`` and, with ``encoder_layers``, the
+    bidirectional encoder (RoPE at the memory positions) and its norm.
+    None stays None."""
+    if memory_raw is None:
+        return None
+    mem = L.dense(params["memory_proj"], memory_raw.to(cfg.cdtype))
+    if cfg.encoder_layers > 0:
+        enc_cfg, _ = _encoder(cfg)
+        spec = dataclasses.replace(enc_cfg.attn_spec("attn"), causal=False)
+        positions = _positions(mem.shape[0], mem.shape[1], mem.device)
+        for layer in _unstack(params["encoder"]["stage"]):
+            p = layer["b0"]
+            y = B.norm_apply(enc_cfg, p["norm_mix"], mem)
+            mem = mem + A.gqa_forward(p["attn"], spec, y, positions)
+            y = B.norm_apply(enc_cfg, p["norm_ffn"], mem)
+            mem = mem + L.mlp(p["ffn"], y, enc_cfg.act)
+        mem = B.norm_apply(cfg, params["encoder"]["norm"], mem)
+    return mem
+
+
+def hidden_states(cfg, params, tokens: torch.Tensor,
+                  memory: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Residual stream after the final norm (pre-unembedding), and the
-    auxiliary loss; tokens: (B, S) integers."""
+    auxiliary loss; tokens: (B, S) integers, ``memory`` the stub
+    frontend's embeddings (a model without memory tokens ignores it)."""
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens, cfg.cdtype)
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    positions = _positions(b, s, tokens.device)
+    mem = _encode_memory(cfg, params, memory) if cfg.num_memory_tokens \
+        else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stage, stage_params in zip(cfg.stages, params["stages"]):
-        x, a = _stage_forward(cfg, stage, stage_params, x, positions)
+        x, a = _stage_forward(cfg, stage, stage_params, x, mem, positions)
         aux = aux + a
     return B.norm_apply(cfg, params["final_norm"], x), aux
 
@@ -109,10 +172,11 @@ def _unembed(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return L.dense(params["unembed"], x.to(torch.float32))
 
 
-def forward(cfg, params, tokens: torch.Tensor
+def forward(cfg, params, tokens: torch.Tensor,
+            memory: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V) float32, auxiliary loss)."""
-    x, aux = hidden_states(cfg, params, tokens)
+    x, aux = hidden_states(cfg, params, tokens, memory)
     return _unembed(cfg, params, x), aux
 
 
@@ -138,18 +202,19 @@ def _chunked_nll(cfg, params, x: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(cfg, params, batch: dict, aux_weight: float = 0.01
             ) -> tuple[torch.Tensor, dict]:
-    """Causal LM loss (next token); batch = ``{"tokens"[, "mask"]}``.
+    """Causal LM loss (next token); batch = ``{"tokens"[, "memory"]
+    [, "mask"]}``.
     A (seq x vocab) product above ``_CHUNKED_LOSS_ELEMS`` without a mask
     streams the unembedding and the cross-entropy over sequence chunks."""
     tokens = batch["tokens"]
     s = tokens.shape[1]
     mask = batch.get("mask")
     if mask is None and (s - 1) * cfg.vocab_size > _CHUNKED_LOSS_ELEMS:
-        x, aux = hidden_states(cfg, params, tokens)
+        x, aux = hidden_states(cfg, params, tokens, batch.get("memory"))
         # positions 0..S-2 predict tokens 1..S-1
         loss = _chunked_nll(cfg, params, x[:, :-1], tokens[:, 1:])
     else:
-        logits, aux = forward(cfg, params, tokens)
+        logits, aux = forward(cfg, params, tokens, batch.get("memory"))
         nll = _nll(logits[:, :-1], tokens[:, 1:])
         if mask is not None:
             m = mask[:, 1:].to(torch.float32)
@@ -181,9 +246,22 @@ def init_cache(cfg, batch: int, cache_len: int,
     return cache
 
 
-def fill_cross_caches(cfg, params, cache: dict, memory: torch.Tensor):
-    raise NotImplementedError(f"fill_cross_caches is not ported yet: "
-                              f"{A._ROADMAP_CROSS}")
+def fill_cross_caches(cfg, params, cache: dict, memory: torch.Tensor
+                      ) -> dict:
+    """The cache with every cross-attention block's static K/V computed
+    from the stub embeddings ``memory`` (B, T, memory_dim) through
+    ``_encode_memory``; the given cache is not written."""
+    mem = _encode_memory(cfg, params, memory)
+    new_stages = []
+    for stage, sp, sc in zip(cfg.stages, params["stages"], cache["stages"]):
+        out = dict(sc)
+        for i, spec in enumerate(stage.blocks):
+            if spec.kind == "cross_attn":
+                out[f"b{i}"] = _stack([
+                    B.fill_cross_cache(cfg, spec, p, c, mem) for p, c in
+                    zip(_unstack(sp[f"b{i}"]), _unstack(sc[f"b{i}"]))])
+        new_stages.append(out)
+    return {"pos": cache["pos"], "stages": new_stages}
 
 
 def decode_step(cfg, params, token: torch.Tensor, cache: dict,
@@ -203,9 +281,7 @@ def decode_step(cfg, params, token: torch.Tensor, cache: dict,
                 x, new_c[f"b{i}"] = B.apply_block_decode(
                     cfg, spec, layer[f"b{i}"], x, lc[f"b{i}"], pos, window)
             layers.append(new_c)
-        new_stages.append(pruning.unflatten(stage_cache, [
-            torch.stack(leaves) for leaves in
-            zip(*(pruning.flatten(c) for c in layers))]))
+        new_stages.append(_stack(layers))
     x = B.norm_apply(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0, :], {"pos": pos + 1,
                                                 "stages": new_stages}

@@ -1,0 +1,307 @@
+"""Recurrent sequence mixers (the port of ``repro.models.recurrent``):
+RG-LRU (Griffin / RecurrentGemma), mLSTM and sLSTM (xLSTM), and the
+causal depthwise conv they use.
+
+The full-sequence forms step through time in order: the RG-LRU's linear
+recurrence, which the reference runs as an ``associative_scan`` with
+``h0`` folded into step 0, as one ``a h + b`` a step; the (s/m)LSTM
+cells, ``lax.scan`` in the reference, as a loop of the same cell.  The
+RG-LRU therefore associates its products differently from the
+reference (float32 1e-5, float64 1e-10); the cells do the reference's
+arithmetic step for step.  Gates and states are float32 as in the
+reference, and mixed operands promote as JAX promotes them.
+
+State conventions (decode), the reference's:
+  conv:   {"buf": (B, width-1, d)}         — last width-1 inputs
+  rglru:  {"h": (B, d)}
+  mlstm:  {"C": (B,H,hd,hd), "n": (B,H,hd), "m": (B,H)}
+  slstm:  {"c": (B,H,hd), "n": (B,H,hd), "m": (B,H,hd), "h": (B,H,hd)}
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import layers as L
+
+_SQRT_EPS = 1e-8
+_RG_C = 8.0
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) without ``F.softplus``'s switch to the identity above
+    its threshold (``jax.nn.softplus`` is exact)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+def _zeros(shape, device) -> torch.Tensor:
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d
+# ---------------------------------------------------------------------------
+
+def init_conv1d(generator, d: int, width: int, dtype) -> dict:
+    w = L._normal(generator, (width, d)) * (width * d) ** -0.5
+    return {"w": w.to(dtype),
+            "b": torch.zeros((d,), dtype=dtype, device=L.device_of(generator))}
+
+
+def conv1d(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise conv over (B, S, d)."""
+    width, s = p["w"].shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    out = pad[:, 0:s, :] * p["w"][0].to(x.dtype)
+    for i in range(1, width):
+        out = out + pad[:, i:i + s, :] * p["w"][i].to(x.dtype)
+    return out + p["b"].to(x.dtype)
+
+
+def init_conv1d_state(batch: int, d: int, width: int, dtype,
+                      device=None) -> dict:
+    return {"buf": torch.zeros((batch, width - 1, d), dtype=dtype,
+                               device=device)}
+
+
+def conv1d_step(p: dict, x: torch.Tensor, state: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """x: (B, 1, d)."""
+    width = p["w"].shape[0]
+    hist = torch.cat([state["buf"], x.to(state["buf"].dtype)], dim=1)
+    out = hist[:, 0:1, :] * p["w"][0].to(x.dtype)
+    for i in range(1, width):
+        out = out + hist[:, i:i + 1, :] * p["w"][i].to(x.dtype)
+    return out + p["b"].to(x.dtype), {"buf": hist[:, 1:, :]}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+def init_rglru(generator, d: int, dtype) -> dict:
+    """``lam`` stays float32 whatever ``dtype``, as in the reference; it
+    is drawn so that a = sigmoid(lam)^c spans slow and fast decay."""
+    u = 0.9 + 0.099 * torch.rand((d,), generator=generator,
+                                 device=L.device_of(generator))
+    lam = torch.log(u ** (1.0 / 8.0) / (1.0 - u ** (1.0 / 8.0)))
+    return {"lam": lam.to(torch.float32),
+            "w_r": L.dense_bias_init(generator, d, d, dtype),
+            "w_i": L.dense_bias_init(generator, d, d, dtype)}
+
+
+def _rglru_coeffs(p: dict, x: torch.Tensor):
+    r = torch.sigmoid(_f32(L.dense(p["w_r"], x)))
+    i = torch.sigmoid(_f32(L.dense(p["w_i"], x)))
+    log_a = -_RG_C * r * _softplus(p["lam"])          # (B,S,d) <= 0
+    a = torch.exp(log_a)
+    gated_x = i * _f32(x)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), _SQRT_EPS)) \
+        * gated_x
+    return a, b
+
+
+def rglru(p: dict, x: torch.Tensor, h0: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """Full-sequence RG-LRU, h_t = a_t h_{t-1} + b_t from ``h0`` (0 if
+    None).  x: (B,S,d)."""
+    a, b = _rglru_coeffs(p, x)
+    h = b[:, 0] if h0 is None else a[:, 0] * h0.to(b.dtype) + b[:, 0]
+    hs = [h]
+    for t in range(1, x.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype)
+
+
+def init_rglru_state(batch: int, d: int, device=None) -> dict:
+    return {"h": _zeros((batch, d), device)}
+
+
+def rglru_step(p: dict, x: torch.Tensor, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """x: (B,1,d)."""
+    a, b = _rglru_coeffs(p, x)
+    h = a[:, 0] * state["h"] + b[:, 0]
+    return h[:, None, :].to(x.dtype), {"h": h}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix memory, exponential gating) — xLSTM
+# ---------------------------------------------------------------------------
+
+def init_mlstm(generator, d_in: int, num_heads: int, head_dim: int,
+               dtype) -> dict:
+    d_qkv = num_heads * head_dim
+    return {
+        "wq": L.dense_init(generator, d_in, d_qkv, dtype),
+        "wk": L.dense_init(generator, d_in, d_qkv, dtype),
+        "wv": L.dense_init(generator, d_in, d_qkv, dtype),
+        "w_i": L.dense_bias_init(generator, d_in, num_heads, dtype),
+        "w_f": L.dense_bias_init(generator, d_in, num_heads, dtype),
+        "w_o": L.dense_bias_init(generator, d_in, d_qkv, dtype),
+    }
+
+
+def _mlstm_gates(p: dict, x: torch.Tensor):
+    """Pre-activation gates (float32): i~, f~ (B,S,H); q,k,v (B,S,H,hd);
+    the output gate o (B,S,H*hd)."""
+    h = p["w_i"]["w"].shape[1]
+
+    def heads(t):
+        return _f32(t.reshape(t.shape[:-1] + (h, t.shape[-1] // h)))
+
+    q = heads(L.dense(p["wq"], x))
+    k = heads(L.dense(p["wk"], x))
+    v = heads(L.dense(p["wv"], x))
+    i_pre = _f32(L.dense(p["w_i"], x))
+    f_pre = _f32(L.dense(p["w_f"], x))
+    o = torch.sigmoid(_f32(L.dense(p["w_o"], x)))
+    return q, k, v, i_pre, f_pre, o
+
+
+def _mlstm_cell(carry, inp):
+    """One stabilised mLSTM step.  carry: (C, n, m); returns (carry, h)."""
+    c_mat, n_vec, m = carry
+    q, k, v, i_pre, f_pre = inp
+    hd = q.shape[-1]
+    log_f = -_softplus(-f_pre)                # log sigmoid(f~)
+    m_new = torch.maximum(log_f + m, i_pre)
+    f_eff = torch.exp(log_f + m - m_new)      # (B,H)
+    i_eff = torch.exp(i_pre - m_new)
+    k_scaled = k * (hd ** -0.5)
+    c_new = f_eff[..., None, None] * c_mat \
+        + i_eff[..., None, None] * (v[..., :, None] * k_scaled[..., None, :])
+    n_new = f_eff[..., None] * n_vec + i_eff[..., None] * k_scaled
+    num = torch.einsum("bhvk,bhk->bhv", c_new, q)
+    den = torch.clamp_min(torch.abs(torch.einsum("bhk,bhk->bh", n_new, q)),
+                          1.0)
+    return (c_new, n_new, m_new), num / den[..., None]
+
+
+def mlstm(p: dict, x: torch.Tensor, state: Optional[dict] = None
+          ) -> torch.Tensor:
+    """Full-sequence mLSTM, the cell stepped over time.  x: (B,S,d_in)."""
+    q, k, v, i_pre, f_pre, o = _mlstm_gates(p, x)
+    b, s, h, hd = q.shape
+    if state is None:
+        state = init_mlstm_state(b, h, hd, x.device)
+    carry = (state["C"], state["n"], state["m"])
+    hs = []
+    for t in range(s):
+        carry, ht = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t],
+                                        i_pre[:, t], f_pre[:, t]))
+        hs.append(ht)
+    hs = torch.stack(hs, dim=1)                 # (B,S,H,hd)
+    out = (o.reshape(b, s, h, hd) * hs).reshape(b, s, h * hd)
+    return out.to(x.dtype)
+
+
+def init_mlstm_state(batch: int, num_heads: int, head_dim: int,
+                     device=None) -> dict:
+    return {"C": _zeros((batch, num_heads, head_dim, head_dim), device),
+            "n": _zeros((batch, num_heads, head_dim), device),
+            "m": _zeros((batch, num_heads), device)}
+
+
+def mlstm_step(p: dict, x: torch.Tensor, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """x: (B,1,d_in)."""
+    q, k, v, i_pre, f_pre, o = _mlstm_gates(p, x)
+    carry = (state["C"], state["n"], state["m"])
+    (c_new, n_new, m_new), h = _mlstm_cell(
+        carry, (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0]))
+    b, _, nh, hd = q.shape
+    out = (o[:, 0].reshape(b, nh, hd) * h).reshape(b, 1, nh * hd)
+    return out.to(x.dtype), {"C": c_new, "n": n_new, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar memory, exponential gating, head-wise recurrence) — xLSTM
+# ---------------------------------------------------------------------------
+
+def init_slstm(generator, d_in: int, num_heads: int, head_dim: int,
+               dtype) -> dict:
+    d_h = num_heads * head_dim
+    p = {name: L.dense_bias_init(generator, d_in, d_h, dtype)
+         for name in ("w_z", "w_i", "w_f", "w_o")}
+    for name in ("r_z", "r_i", "r_f", "r_o"):
+        p[name] = (L._normal(generator, (num_heads, head_dim, head_dim))
+                   * head_dim ** -0.5).to(dtype)
+    return p
+
+
+def _slstm_cell(p: dict, carry, inp):
+    """carry: (c, n, m, h) each (B,H,hd); inp: pre-activations (B,H,hd) x4.
+    The recurrence matrices are rounded to float32, then take h's dtype
+    (JAX's promotion of a float32 operand)."""
+    c, n, m, h = carry
+    z_pre, i_pre, f_pre, o_pre = inp
+
+    def rec(r, h_):
+        return torch.einsum("bhk,hkv->bhv", h_, _f32(r).to(h_.dtype))
+
+    z = torch.tanh(z_pre + rec(p["r_z"], h))
+    i_t = i_pre + rec(p["r_i"], h)
+    f_t = f_pre + rec(p["r_f"], h)
+    o = torch.sigmoid(o_pre + rec(p["r_o"], h))
+    log_f = -_softplus(-f_t)
+    m_new = torch.maximum(log_f + m, i_t)
+    f_eff = torch.exp(log_f + m - m_new)
+    i_eff = torch.exp(i_t - m_new)
+    c_new = f_eff * c + i_eff * z
+    n_new = torch.clamp_min(f_eff * n + i_eff, 1e-6)
+    h_new = o * c_new / n_new
+    return (c_new, n_new, m_new, h_new), h_new
+
+
+def _slstm_pre(p: dict, x: torch.Tensor, num_heads: int):
+    def heads(t):
+        return _f32(t.reshape(t.shape[:-1]
+                              + (num_heads, t.shape[-1] // num_heads)))
+    return tuple(heads(L.dense(p[name], x))
+                 for name in ("w_z", "w_i", "w_f", "w_o"))
+
+
+def slstm(p: dict, x: torch.Tensor, state: Optional[dict] = None
+          ) -> torch.Tensor:
+    """Full-sequence sLSTM. x: (B,S,d_in) -> (B,S,H*hd)."""
+    num_heads = p["r_z"].shape[0]
+    z, i, f, o = _slstm_pre(p, x, num_heads)
+    b, s, h, hd = z.shape
+    if state is None:
+        state = init_slstm_state(b, h, hd, x.device)
+    carry = (state["c"], state["n"], state["m"], state["h"])
+    hs = []
+    for t in range(s):
+        carry, ht = _slstm_cell(p, carry, (z[:, t], i[:, t], f[:, t],
+                                           o[:, t]))
+        hs.append(ht)
+    return torch.stack(hs, dim=1).reshape(b, s, h * hd).to(x.dtype)
+
+
+def init_slstm_state(batch: int, num_heads: int, head_dim: int,
+                     device=None) -> dict:
+    """``n`` starts at 1e-6 (the cell's floor), the rest at 0."""
+    shape = (batch, num_heads, head_dim)
+    return {"c": _zeros(shape, device),
+            "n": torch.full(shape, 1e-6, dtype=torch.float32, device=device),
+            "m": _zeros(shape, device), "h": _zeros(shape, device)}
+
+
+def slstm_step(p: dict, x: torch.Tensor, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    num_heads = p["r_z"].shape[0]
+    z, i, f, o = _slstm_pre(p, x, num_heads)
+    carry = (state["c"], state["n"], state["m"], state["h"])
+    (c, n, m, h), out = _slstm_cell(p, carry,
+                                    (z[:, 0], i[:, 0], f[:, 0], o[:, 0]))
+    b, _, nh, hd = z.shape
+    return out.reshape(b, 1, nh * hd).to(x.dtype), \
+        {"c": c, "n": n, "m": m, "h": h}

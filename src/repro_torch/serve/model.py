@@ -42,6 +42,8 @@ from repro_torch.serve import sparse
 
 
 def _validate(cfg) -> None:
+    if cfg.encoder_layers or cfg.num_memory_tokens:
+        raise NotImplementedError("serve: encoder/memory models unsupported")
     for stage in cfg.stages:
         for spec in stage.blocks:
             if spec.kind != "attn":

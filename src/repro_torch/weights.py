@@ -49,10 +49,11 @@ def tree_from_numpy(tree, dtype: Optional[torch.dtype] = torch.float32,
     """Nested dicts and lists of arrays -> the same structure of tensors:
     params (``{"layer{i}": {"w": (in, out), "b": (out,)}}``, or a
     transformer's ``{"embed", "final_norm", "stages": [...]}``, MoE experts
-    and all), a decode cache (``{"pos", "stages"}``), task state
-    (``templates``, ``x_test``, ``y_test``) or cached client batches
-    (``{"x": (n, batch, D), "y": (n, batch)}``).  ``dtype=None`` keeps
-    each leaf's own: a bfloat16 model's float32 router stays float32."""
+    and all, with an encoder subtree and ``memory_proj``), a decode cache
+    (``{"pos", "stages"}``), task state (``templates``, ``x_test``,
+    ``y_test``) or cached client batches (``{"x": (n, batch, D), "y":
+    (n, batch)}``).  ``dtype=None`` keeps each leaf's own: a bfloat16
+    model's float32 MoE router and RG-LRU ``lam`` stay float32."""
     if isinstance(tree, Mapping):
         return {k: tree_from_numpy(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

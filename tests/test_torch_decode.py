@@ -44,9 +44,10 @@ needs_jax = pytest.mark.skipif(JM is None, reason="needs the JAX reference")
 PORTED = ("smollm-135m", "granite-3-2b", "qwen2-7b", "olmoe-1b-7b",
           "grok-1-314b")
 DENSE_NEW = ("granite-3-2b", "qwen2-7b")
-NOT_PORTED = {"xlstm-125m": "recurrent", "recurrentgemma-2b": "recurrent",
-              "minicpm3-4b": "MLA", "llama-3.2-vision-11b": "cross attention",
-              "whisper-base": "encoder"}
+# the configs that once raised NotImplementedError, and a block kind of each
+FORMERLY_REFUSED = {"xlstm-125m": "mlstm", "recurrentgemma-2b": "rglru",
+                    "minicpm3-4b": "mla", "llama-3.2-vision-11b": "cross_attn",
+                    "whisper-base": "cross_attn"}
 B, T = 1, 12
 FORWARD_TOL = dict(rtol=2e-3, atol=2e-3)
 REF_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -266,15 +267,28 @@ def test_decode_step_leaves_its_cache_alone():
 
 
 def test_unported_pieces_name_their_roadmap_items():
-    cfg = t_get_config("smollm-135m").smoke_variant()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TM.fill_cross_caches(cfg, None, None, None)
-    spec = dataclasses.replace(cfg.stages[0].blocks[0], kind="mla")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TB.init_block_cache(cfg, spec, 1, 4, None, "cpu")
-    for name, what in NOT_PORTED.items():
-        with pytest.raises(NotImplementedError, match=f"item 10 .*{what}"):
-            t_get_config(name)
+    """What item 10 once refused now runs: every config loads and holds
+    its block kind, an MLA block's latent cache is made, and
+    ``fill_cross_caches`` fills a memory model's cross caches (only
+    those)."""
+    for name, kind in FORMERLY_REFUSED.items():
+        cfg = t_get_config(name)
+        assert kind in {b.kind for st in cfg.stages for b in st.blocks}
+    cfg = t_get_config("minicpm3-4b").smoke_variant()
+    cache = TB.init_block_cache(cfg, cfg.stages[0].blocks[0], 2, 4, None,
+                                "cpu")
+    assert {k: tuple(v.shape) for k, v in cache.items()} == \
+        {"ckv": (2, 4, 32), "kpe": (2, 4, 16)}
+    cfg = t_get_config("whisper-base").smoke_variant()
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = TM.init_cache(cfg, 2, 4, device="cpu")
+    mem = torch.randn(2, cfg.num_memory_tokens, cfg.memory_dim_,
+                      generator=torch.Generator().manual_seed(1))
+    filled = TM.fill_cross_caches(cfg, params, cache, mem)
+    assert filled["stages"][0]["b1"]["mk"].abs().sum() > 0
+    assert torch.equal(filled["stages"][0]["b0"]["k"],
+                       cache["stages"][0]["b0"]["k"])
+    assert not cache["stages"][0]["b1"]["mk"].any()   # not written
 
 
 # ---------------------------------------------------------------------------
