@@ -182,6 +182,38 @@ Phases (any failure exits non-zero and prints no result line):
                (TransformerTask(arch=...), the generic path), 2 rounds:
                one grouped tile-norm launch a round over its 4-D and 3-D
                leaves, rerun bitwise.
+ 18. the training launcher and the mesh trainer — (a) ``launch.train.main``
+               in this process on the card at smollm-135m's smoke width:
+               20 Adam steps (the last logged loss below the first), 10
+               ``--fl`` steps over a world of one rank (NCCL; one
+               tile-norm launch a step; the ranking of its seeded smoke
+               params, float32 and ragged at block 16, against its plain
+               version and its tile keeps against the plain norms'), 5
+               steps with ``--ckpt`` (restored bitwise equal to a
+               replay); (b) smollm-135m at full width
+               (bfloat16 params from a seed) through the launcher's host
+               step (Adam at lr 1e-3 after clipping), 10 steps of (8, 128)
+               TokenStream tokens: the loss falling, a rerun bitwise, ms a
+               warm step, peak memory, a profiled step; the prefill step
+               against forward's last position (1e-5), the serve step
+               against decode_step (bitwise); a 2-layer float32 cut card
+               vs CPU, 3 host steps each from the CPU's state (m and v
+               within TOL of each row's largest, the params within TOL
+               wherever the rows' measured gap cannot move Adam's step
+               further, the share held printed); (c) the FL step (``federated.trainer``) at full width
+               on a world of one rank, block 16, rho 0.3: one tile-norm
+               launch a step, the ranking against its plain version
+               (``norms_regime``) and its tile keeps against the plain
+               norms' (near ties only), achieved rho within 0.15 of 0.3,
+               a rerun bitwise, an all-dropped step leaving the params
+               bitwise, rho = 0 against make_train_step (1e-5); (d) the FL
+               step on two ranks sharing the card over gloo (two
+               processes with a timeout) at the smoke width, rho [0.3,
+               0.5], k [40, 30], arrivals [1, 0] and [1, 1]: both ranks'
+               params bitwise equal and within 1e-5 of the Eq.-(5)
+               aggregate of the two clients' masked gradients, its masks
+               built here from the plain tile norms; the ranking of these
+               params held as in (a).
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
@@ -195,13 +227,17 @@ olmoe-1b-7b fleet; the serving rows and row 2 carry
 16c's; the serving rows ``gather_launches``, 16d's gather impl's, and
 ``gather_kernel_launches``, 16d's kernel impl's; row 2
 ``xlstm_fleet_launches``, 17a's fleet's, and ``xlstm_*``, the tile norms
-on 17a's ranking); the last is the device JSON.
+on 17a's ranking; row 2 ``train_cli_fl_launches``, ``fl_step_launches``
+and ``fl_two_rank_launches``, phase 18a's ``--fl`` run's, 18c's and 18d's
+two ranks', and ``fl_block16_*``, the tile norms on 18c's ranking); the
+last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -3361,6 +3397,619 @@ def run_phase17(card: str, floor_ms: float) -> tuple[dict, dict]:
     return fleet
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the training launcher and the mesh trainer
+# ---------------------------------------------------------------------------
+
+HOST_BATCH, HOST_SEQ, HOST_STEPS, HOST_LR = 8, 128, 10, 1e-2
+# the launcher's lr suits its smoke width; Adam at full width takes 1e-3
+FULL_LR = 1e-3
+CPU_BATCH, CPU_SEQ, CPU_STEPS = 2, 64, 3
+FL_BLOCK, FL_RHO, FL_K, FL_STEPS = 16, 0.3, 40.0, 3
+TWO_RHO, TWO_K, TWO_ARRIVALS = [0.3, 0.5], [40.0, 30.0], ([1.0, 0.0],
+                                                          [1.0, 1.0])
+TWO_BATCH, TWO_SEQ, TWO_TIMEOUT = 2, 32, 240
+P18_SEED = DEC_SEED + 40
+
+# 18d: one rank of the two-rank FL step on the card over gloo (NCCL takes
+# one rank a device); writes each case's params and metrics
+TWO_RANK_CHILD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+rank, world, store, out, spec = sys.argv[1:6]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+from repro_torch import checkpoint
+from repro_torch.configs import get_config
+from repro_torch.core import pruning
+from repro_torch.data.tokens import TokenStream
+from repro_torch.federated import trainer as FT
+from repro_torch.kernels import block_norms as BN
+from repro_torch.launch import mesh as MESH
+from repro_torch.models import model as M
+cfg = get_config("smollm-135m").smoke_variant()
+dev = spec["device"]
+params = pruning.tree_map(lambda a: a.to(dev), M.init_params(
+    cfg, torch.Generator().manual_seed(spec["seed"])))
+tokens = torch.as_tensor(TokenStream(cfg.vocab_size, seed=spec["seed"])
+                         .sample(world * spec["batch"], spec["seq"]),
+                         dtype=torch.int64, device=dev)
+mesh = MESH.make_host_mesh(model=1, device=dev)
+step = FT.make_fl_train_step(cfg, mesh, ("data",), block=spec["block"],
+                             lr=spec["lr"])
+vec = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+metrics = []
+for c, arrivals in enumerate(spec["arrivals"]):
+    new, m = step(params, {"tokens": tokens}, vec(spec["rho"]),
+                  vec(arrivals), vec(spec["k"]))
+    checkpoint.save(f"{out}/rank{rank}_case{c}.npz", new)
+    metrics.append({"loss": float(m["loss"]),
+                    "achieved_rho": m["achieved_rho"].tolist()})
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump({"client": FT.client_index(mesh, ("data",)),
+               "clients": FT.num_clients(mesh, ("data",)),
+               "tile_norms": BN.tile_norms.launches, "metrics": metrics}, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def tree_rel(a, b) -> tuple[float, float]:
+    """(max |a - b|, that over max |b|) over every leaf of two trees."""
+    from repro_torch.core import pruning
+    worst = worst_rel = 0.0
+    for x, y in zip(pruning.flatten(a), pruning.flatten(b)):
+        diff, rel = rel_err(x.double().cpu(), y.double().cpu())
+        worst, worst_rel = max(worst, diff), max(worst_rel, rel)
+    return worst, worst_rel
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+    from repro_torch.core import pruning
+    return all(torch.equal(x, y) for x, y in zip(pruning.flatten(a),
+                                                 pruning.flatten(b)))
+
+
+def run_train_main(argv: list) -> list:
+    """``launch.train.main(argv)`` in this process, its printed lines
+    echoed and returned; fails on a non-zero return."""
+    import io
+    from repro_torch.launch import train as TRAIN
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = TRAIN.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"    | {line}")
+    if rc != 0:
+        raise AssertionError(f"train.main({argv}) returned {rc}")
+    return lines
+
+
+def logged(lines: list, key: str) -> list:
+    """The ``key=value`` floats of the launcher's step lines."""
+    return [float(part.split("=")[1]) for line in lines
+            if line.startswith("step ") for part in line.split()
+            if part.startswith(f"{key}=")]
+
+
+def smoke_ranking(params, what: str, rhos, floor_ms: float,
+                  card: str) -> float:
+    """The FL step's ranking at smollm-135m's smoke width (float32 stacked
+    leaves, the q/k/v leaves 126 wide: ragged at block 16), on the
+    seeded ``params`` a run ranks: the tile norms held against the plain
+    version (``norms_regime``) and the tile keeps at each rate against
+    those of the plain norms (only near ties may differ).  Returns the
+    norms' largest error."""
+    from repro_torch.configs import get_config
+    from repro_torch.fleet.task import TransformerTask
+    cfg = get_config("smollm-135m").smoke_variant()
+    regime = norms_regime(
+        f"smollm-135m smoke width block {FL_BLOCK} ({what})",
+        *task_ranking(TransformerTask(arch=cfg, block=FL_BLOCK), params),
+        20, 3, floor_ms, card)
+    for rho in rhos:
+        tiles, differ = keep_ties(params, rho, FL_BLOCK)
+        log(f"  tile keeps at rho {rho} ({what}), kernel vs plain norms: "
+            f"{differ} of {tiles} tiles differ (only near ties may)")
+    return regime["max_abs_err"]
+
+
+def run_cli(card: str, floor_ms: float) -> tuple[int, float]:
+    """18a: ``python -m repro_torch.launch.train`` in process on the card:
+    20 Adam steps (the last logged loss below the first), 10 ``--fl``
+    steps over a world of one (one tile-norm launch a step; the ranking
+    of the launcher's seeded params held against the plain version), and
+    5 steps with ``--ckpt``: the checkpoint restores bitwise to the
+    params that 5 host steps from the launcher's seed and stream give.
+    Returns the ``--fl`` run's tile-norm launches and the ranking's
+    largest error."""
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint, optimizers
+    from repro_torch.configs import get_config
+    from repro_torch.core import pruning
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import model as M
+    base = ["--arch", "smollm-135m"]
+    t0 = time.perf_counter()
+    lines = run_train_main(base + ["--steps", "20"])
+    wall = time.perf_counter() - t0
+    losses = logged(lines, "loss")
+    log(f"  plain (adam): losses {losses}, {wall:.2f} s in all, "
+        f"{20 / wall:.2f} steps/s [{card}]")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"launcher losses do not fall: {losses}")
+    zero_fleet_counts()
+    t0 = time.perf_counter()
+    lines = run_train_main(base + ["--fl", "--steps", "10"])
+    wall = time.perf_counter() - t0
+    fl_launches = fleet_counts()["tile_norms"]
+    rhos = logged(lines, "rho")
+    log(f"  --fl: losses {logged(lines, 'loss')}, rho {rhos}, {wall:.2f} s "
+        f"in all, {10 / wall:.2f} steps/s, tile-norm launches "
+        f"{fl_launches} [{card}]")
+    if fl_launches != 10 or any(abs(r - 0.3) > 0.15 for r in rhos) \
+            or not all(map(math.isfinite, logged(lines, "loss"))):
+        raise AssertionError(f"--fl run: {fl_launches} launches, rho {rhos}")
+    cfg = get_config("smollm-135m").smoke_variant()
+
+    def seeded():
+        return pruning.tree_map(lambda a: a.to(CARD), M.init_params(
+            cfg, torch.Generator().manual_seed(0)))
+
+    err = smoke_ranking(seeded(), "18a's --fl", [FL_RHO], floor_ms, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ckpt.npz"
+        run_train_main(base + ["--steps", "5", "--ckpt", path])
+        params = seeded()
+        opt = optimizers.adam()
+        state, step = opt.init(params), TRAIN.make_host_step(cfg, opt,
+                                                             HOST_LR)
+        stream = TokenStream(cfg.vocab_size, seed=0)
+        for _ in range(5):
+            params, state, _ = step(params, state, {"tokens": torch.as_tensor(
+                stream.sample(HOST_BATCH, HOST_SEQ).astype(np.int64),
+                device=CARD)})
+        restored = checkpoint.restore(path, params, device=CARD)
+    if not trees_equal(restored, params):
+        raise AssertionError("--ckpt: the restored params differ from a "
+                             "replay of the run")
+    log(f"  --ckpt: restored bitwise equal to a replay of the 5 steps "
+        f"({M.param_count(params)} params)")
+    return fl_launches, err
+
+
+def host_batches(vocab: int, batch: int, seq: int, steps: int, device):
+    """``steps`` token batches of one TokenStream, int64 on ``device``."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    stream = TokenStream(vocab, seed=P18_SEED)
+    return [{"tokens": torch.as_tensor(stream.sample(batch, seq)
+                                       .astype(np.int64), device=device)}
+            for _ in range(steps)]
+
+
+def host_run(cfg, params, batches) -> tuple:
+    """The launcher's host step (Adam after clipping, ``FULL_LR``) over
+    ``batches``: (params, each step's loss, each step's wall in ms)."""
+    import torch
+    from repro_torch import optimizers
+    from repro_torch.launch import train as TRAIN
+    opt = optimizers.adam()
+    state, step = opt.init(params), TRAIN.make_host_step(cfg, opt, FULL_LR)
+    losses, walls = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return params, losses, walls
+
+
+def adam_step_agreement(t: int, lr: float, got: tuple,
+                        want: tuple) -> tuple[int, int, float, float]:
+    """One Adam step (b1 0.9, b2 0.999, eps 1e-8) from a shared state, the
+    card's (``got``: params, m, v trees) against the CPU's (``want``),
+    leaf by leaf in float64 on the CPU.  ``m`` and ``v`` within TOL of
+    each row's largest (a row: the last axis), so a gradient error in a
+    row of small values (an embedding row of a token not drawn) shows.
+    Adam divides each element by its own sqrt(v_hat) + eps, so a row's
+    measured gap g_r (its largest |m_hat| or sqrt(v_hat) difference)
+    moves an element's step by at most lr (1 + max|u|) g_r / sqrt(v_hat)
+    to first order; the params are held within TOL of the leaf's largest
+    wherever twice that bound is within it.  Every element within 2 lr
+    of the CPU's.  Returns (elements held, all elements, the worst m/v
+    rel to its row, the worst held param rel)."""
+    import torch
+    from repro_torch.core import pruning
+    bc1, bc2 = 1 - 0.9 ** t, 1 - 0.999 ** t
+    held = total = 0
+    worst_mv = worst = 0.0
+    for leaf in zip(*(pruning.flatten(x) for x in got + want)):
+        gp, gm, gv, wp, wm, wv = (x.detach().cpu().double().reshape(
+            -1, x.shape[-1]) for x in leaf)
+        for a, b in ((gm, wm), (gv, wv)):
+            scale = b.abs().amax(dim=1, keepdim=True)
+            diff = (a - b).abs()
+            if bool((diff > TOL * scale).any()):
+                raise AssertionError("host step card vs CPU: m or v differs "
+                                     "beyond TOL of its row's largest")
+            worst_mv = max(worst_mv, float((diff / scale.clamp_min(
+                1e-300)).max()))
+        root = torch.sqrt(wv / bc2)
+        gap = torch.maximum((gm - wm).abs() / bc1,
+                            (torch.sqrt(gv / bc2) - root).abs()).amax(
+                                dim=1, keepdim=True)
+        u = (wm / bc1).abs() / (root + 1e-8)
+        top = float(wp.abs().max())
+        cond = root >= 2 * (1 + float(u.max())) * lr * gap / (TOL * top)
+        diff = (gp - wp).abs()
+        if bool(cond.any()):
+            worst = max(worst, float(diff[cond].max()) / top)
+        if float(diff.max()) > 2 * lr:
+            raise AssertionError("host step card vs CPU: an element moved "
+                                 "more than 2 lr apart")
+        held += int(cond.sum())
+        total += cond.numel()
+    if worst > TOL:
+        raise AssertionError(f"host step card vs CPU: params rel {worst:.3e}"
+                             f" where held > {TOL}")
+    return held, total, worst_mv, worst
+
+
+def host_card_vs_cpu(cfg, card: str) -> None:
+    """18b's depth cut: ``cfg`` at 2 float32 layers, params drawn on the
+    CPU; 3 host steps, each on the card and on the CPU from the CPU's
+    params and Adam state, held by ``adam_step_agreement``, at least 90%
+    of the element-steps held."""
+    from repro_torch import optimizers
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import model as M
+    cut = two_layers(cfg)
+    params = model_params(cut, P18_SEED, "cpu")
+    opt = optimizers.adam()
+    state = opt.init(params)
+    step = TRAIN.make_host_step(cut, opt, FULL_LR)
+    held = total = 0
+    worst_mv = worst = 0.0
+    for t, batch in enumerate(host_batches(cut.vocab_size, CPU_BATCH,
+                                           CPU_SEQ, CPU_STEPS, "cpu"), 1):
+        card_p, card_s, _ = step(on_device(params, CARD),
+                                 on_device(state, CARD), on_device(batch,
+                                                                   CARD))
+        new, state, _ = step(params, state, batch)
+        h, n, mv, w = adam_step_agreement(
+            t, FULL_LR, (card_p, card_s["m"], card_s["v"]),
+            (new, state["m"], state["v"]))
+        params = new
+        held, total = held + h, total + n
+        worst_mv, worst = max(worst_mv, mv), max(worst, w)
+    log(f"  {cut.num_layers}-layer float32 cut ({M.param_count(params)} "
+        f"params), {CPU_STEPS} host steps of ({CPU_BATCH}, {CPU_SEQ}) card "
+        f"vs CPU: m and v rel {worst_mv:.3e} of their rows' largest; params "
+        f"rel {worst:.3e} where the rows' measured gap cannot move Adam's "
+        f"step further ({100 * held / total:.2f}% of element-steps held) "
+        f"(tol {TOL}) [{card}]")
+    if held < 0.9 * total:
+        raise AssertionError(f"host step card vs CPU: {held} of {total} "
+                             f"element-steps held, under 90%")
+
+
+def run_host_full(card: str) -> None:
+    """18b: smollm-135m at full width (bfloat16 params) through the
+    launcher's host step: 10 steps of (8, 128) from seeded params, the
+    loss falling and a rerun bitwise equal; the warm step's median ms,
+    peak memory and a profiled step's busy share; the prefill step's
+    logits against ``forward``'s last position within 1e-5 and the serve
+    step against ``decode_step`` bitwise; then the depth cut card vs
+    CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TRAIN
+    from repro_torch import optimizers
+    from repro_torch.models import model as M
+    cfg = get_config("smollm-135m")
+    batches = host_batches(cfg.vocab_size, HOST_BATCH, HOST_SEQ, HOST_STEPS,
+                           CARD)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = model_params(cfg, P18_SEED)
+    log(f"  smollm-135m: {M.param_count(start)} params {cfg.param_dtype} "
+        f"({tree_bytes(start) / 1e9:.3f} GB), Adam state float32")
+    params, losses, walls = host_run(cfg, start, batches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    again, losses2, walls2 = host_run(cfg, model_params(cfg, P18_SEED),
+                                      batches)
+    med = float(np.median(walls[1:] + walls2[1:]))
+    log(f"  host step (adam, lr {FULL_LR}, clip 1.0) at B = {HOST_BATCH}, "
+        f"S = {HOST_SEQ}: "
+        f"losses {[round(x, 4) for x in losses]}; {med:.2f} ms a warm step "
+        f"(median of {len(walls) + len(walls2) - 2}; first {walls[0]:.1f} "
+        f"ms), peak device memory {peak:.2f} GiB [{card}]")
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"full-width host losses do not fall: {losses}")
+    if losses2 != losses or not trees_equal(again, params):
+        raise AssertionError("full-width host step: rerun differs")
+    log("  host step: rerun losses and params bitwise equal")
+    del again
+    opt = optimizers.adam()
+    state, step = opt.init(params), TRAIN.make_host_step(cfg, opt, FULL_LR)
+    profile_device(lambda: step(params, state, batches[0]), "host step",
+                   card)
+    del state
+    tokens = batches[0]["tokens"]
+    last, _ = ST.make_prefill_step(cfg)(params, {"tokens": tokens})
+    with torch.no_grad():
+        full, _ = M.forward(cfg, params, tokens)
+    diff, rel = rel_err(last, full[:, -1])
+    log(f"  prefill step vs forward's last position: max_abs_err="
+        f"{diff:.3e} rel={rel:.3e} (tol 1e-5) [{card}]")
+    if rel > 1e-5:
+        raise AssertionError(f"prefill step vs forward: rel {rel:.3e}")
+    del full
+    cache = M.init_cache(cfg, HOST_BATCH, HOST_SEQ, device=CARD)
+    serve = ST.make_serve_step(cfg, None)
+    for t in range(4):
+        got, got_cache = serve(params, tokens[:, t:t + 1], cache)
+        with torch.no_grad():
+            want, cache = M.decode_step(cfg, params, tokens[:, t:t + 1],
+                                        cache)
+        if not (torch.equal(got, want) and trees_equal(got_cache, cache)):
+            raise AssertionError("serve step differs from decode_step")
+    log("  serve step equals decode_step bitwise (4 steps, logits and cache)")
+    del params, cache, start
+    torch.cuda.empty_cache()
+    host_card_vs_cpu(cfg, card)
+
+
+@contextlib.contextmanager
+def plain_tile_norms():
+    """Within the block, every ranking on the card (``pruning``'s
+    ``block_norm_state``, and so ``block_masks``) takes its tile norms
+    from the plain version, not the kernel."""
+    from repro_torch.kernels import block_norms as BN
+    group = BN.tile_norms_group
+    BN.tile_norms_group = BN.tile_norms_group_plain
+    try:
+        yield
+    finally:
+        BN.tile_norms_group = group
+
+
+def keep_ties(params, rho: float, block: int) -> tuple[int, int]:
+    """Tile keeps at ``rho`` from the kernel's norms against those from the
+    plain version's, both ranked on the card: (tiles, tiles that differ).
+    A differing tile must be a near tie: its plain norm within TOL of the
+    plain threshold."""
+    import torch
+    from repro_torch.core import pruning
+    rate = torch.tensor(rho, device=CARD)
+    kernel_state = pruning.block_norm_state(params, block)
+    with plain_tile_norms():
+        plain_state = pruning.block_norm_state(params, block)
+    tiles = differ = 0
+    for ks, ps, kk, pk in zip(kernel_state, plain_state,
+                              pruning.block_keep(kernel_state, rate),
+                              pruning.block_keep(plain_state, rate)):
+        if ks is None:
+            continue
+        tiles += kk.numel()
+        split = kk != pk
+        if split.any():
+            thresh = pruning.block_thresholds(ps, rate)
+            # a swap of two tiles at the threshold: each within the
+            # kernel's tolerance of it, once a side
+            gap = (ps.norms[split] - thresh).abs()
+            if float(gap.max()) > 2 * TOL * float(thresh):
+                raise AssertionError("tile keeps from kernel and plain norms "
+                                     "differ away from the threshold")
+            differ += int(split.sum())
+    return tiles, differ
+
+
+def run_fl_full(card: str, floor_ms: float) -> tuple[int, dict]:
+    """18c: the FL step (``federated.trainer``) on smollm-135m at full
+    width over a world of one rank (NCCL), block 16, rho 0.3, k 40:
+    exactly one tile-norm launch a step (counted from zero over the
+    steps), the ranking held against the plain version on its leaves and
+    tiles (``norms_regime``) and its tile keeps against those of the plain
+    norms, ``achieved_rho`` within 0.15 of 0.3, a rerun bitwise, an
+    all-dropped step leaving the params bitwise, and rho = 0 against
+    ``make_train_step`` within 1e-5.  Returns (launches, the ranking's
+    figures)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.federated import trainer as FT
+    from repro_torch.fleet.task import TransformerTask
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as ST
+    cfg = get_config("smollm-135m")
+    mesh = MESH.make_host_mesh(model=1, device=CARD)
+    n = FT.num_clients(mesh, ("data",))
+    step = FT.make_fl_train_step(cfg, mesh, ("data",), block=FL_BLOCK,
+                                 lr=HOST_LR)
+
+    def vec(x):
+        return torch.full((n,), x, dtype=torch.float32, device=CARD)
+
+    batches = host_batches(cfg.vocab_size, n * HOST_BATCH, HOST_SEQ,
+                           FL_STEPS, CARD)
+    start = model_params(cfg, P18_SEED + 1)
+
+    def run():
+        params, rhos, walls = start, [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, m = step(params, batch, vec(FL_RHO), vec(1.0), vec(FL_K))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rhos.append(float(m["achieved_rho"][0]))
+        return params, rhos, walls
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_fleet_counts()
+    params, rhos, walls = run()
+    launches = fleet_counts()
+    log(f"  FL step (world of {n}, NCCL, block {FL_BLOCK}, rho {FL_RHO}): "
+        f"achieved rho {rhos}, walls {fmt_walls(walls)}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{json.dumps(launches)} [{card}]")
+    if launches != {"fleet_fused_grads": 0, "tile_norms": FL_STEPS}:
+        raise AssertionError(f"FL step launches {launches}: want one "
+                             f"tile-norm launch a step")
+    if any(abs(r - FL_RHO) > 0.15 for r in rhos):
+        raise AssertionError(f"achieved rho {rhos} not within 0.15 of "
+                             f"{FL_RHO}")
+    again, rhos2, walls2 = run()
+    if rhos2 != rhos or not trees_equal(again, params):
+        raise AssertionError("FL step: rerun differs")
+    log(f"  FL step: rerun bitwise equal; warm step "
+        f"{float(np.median(walls[1:] + walls2[1:])):.2f} ms (median) "
+        f"[{card}]")
+    del again
+    regime = norms_regime(f"smollm-135m block {FL_BLOCK} (18c's FL step)",
+                          *task_ranking(TransformerTask(arch=cfg,
+                                                        block=FL_BLOCK),
+                                        start), 20, 3, floor_ms, card)
+    tiles, differ = keep_ties(start, FL_RHO, FL_BLOCK)
+    log(f"  tile keeps at rho {FL_RHO}, kernel vs plain norms: {differ} of "
+        f"{tiles} tiles differ (only near ties may)")
+    dropped, _ = step(start, batches[0], vec(FL_RHO), vec(0.0), vec(FL_K))
+    if not trees_equal(dropped, start):
+        raise AssertionError("an all-dropped FL step moved the params")
+    del dropped
+    dense, _ = step(start, batches[0], vec(0.0), vec(1.0), vec(FL_K))
+    want, _ = ST.make_train_step(cfg, HOST_LR)(start, batches[0])
+    diff, rel = tree_rel(dense, want)
+    log(f"  all-dropped step: params bitwise unchanged; rho = 0 vs "
+        f"make_train_step: max_abs_err={diff:.3e} rel={rel:.3e} (tol 1e-5) "
+        f"[{card}]")
+    if rel > 1e-5:
+        raise AssertionError(f"rho = 0 FL step vs make_train_step: {rel:.3e}")
+    del dense, want, params, start
+    torch.cuda.empty_cache()
+    return launches["tile_norms"], regime
+
+
+def run_fl_two_ranks(card: str, floor_ms: float) -> tuple[int, float]:
+    """18d: the FL step on two ranks sharing the card over gloo (two
+    processes, a FileStore, each with a timeout) at smollm-135m's smoke
+    width, rho [0.3, 0.5], k [40, 30], arrivals [1, 0] and [1, 1]: both
+    ranks' params bitwise equal and within 1e-5 of the Eq.-(5)
+    ``aggregate`` of the two clients' masked gradients computed here,
+    with masks from the plain tile norms (so a fault of the kernel the
+    ranks rank with shows), and the ranking of these params held against
+    the plain version.  Returns the ranks' tile-norm launches and the
+    ranking's largest error."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import aggregation, pruning
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.fleet.task import TransformerTask
+    from repro_torch.models import model as M
+    spec = {"seed": P18_SEED + 2, "batch": TWO_BATCH, "seq": TWO_SEQ,
+            "block": FL_BLOCK, "lr": 0.5, "rho": TWO_RHO, "k": TWO_K,
+            "arrivals": TWO_ARRIVALS, "device": CARD}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TWO_RANK_CHILD, str(r), "2",
+             f"{tmp}/store", tmp, json.dumps(spec)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=TWO_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"18d rank {r} exited {p.returncode}:"
+                                     f"\n{out[-3000:]}")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        cfg = get_config("smollm-135m").smoke_variant()
+        params = pruning.tree_map(lambda a: a.to(CARD), M.init_params(
+            cfg, torch.Generator().manual_seed(spec["seed"])))
+        results = [[checkpoint.restore(f"{tmp}/rank{r}_case{c}.npz", params,
+                                       device=CARD)
+                    for c in range(len(TWO_ARRIVALS))] for r in range(2)]
+    if [(x["client"], x["clients"]) for x in ranks] != [(0, 2), (1, 2)]:
+        raise AssertionError(f"18d ranks {ranks}")
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, seed=spec["seed"])
+                             .sample(2 * TWO_BATCH, TWO_SEQ),
+                             dtype=torch.int64, device=CARD)
+    err = smoke_ranking(params, "18d's", TWO_RHO, floor_ms, card)
+    task = TransformerTask(arch=cfg, block=FL_BLOCK)
+    grads = []
+    for i in range(2):
+        with plain_tile_norms():
+            masks = pruning.block_masks(params, torch.tensor(
+                TWO_RHO[i], device=CARD), block=task.tile_grid(params))
+        batch = {"tokens": tokens[i * TWO_BATCH:(i + 1) * TWO_BATCH]}
+        _, g = pruning.value_and_grad(lambda p: (task.loss(
+            pruning.apply_masks(p, masks), batch), None), params)
+        grads.append(pruning.apply_masks(g, masks))
+    stacked = pruning.tree_map(lambda *g: torch.stack(g), *grads)
+    worst = 0.0
+    for c, arrivals in enumerate(TWO_ARRIVALS):
+        g = aggregation.aggregate(stacked, torch.tensor(TWO_K, device=CARD),
+                                  torch.tensor(arrivals, device=CARD))
+        want = pruning.tree_map(lambda p, gg: p - spec["lr"] * gg, params, g)
+        if not trees_equal(results[0][c], results[1][c]):
+            raise AssertionError(f"18d case {c}: the ranks' params differ")
+        worst = max(worst, tree_rel(results[0][c], want)[1])
+        if ranks[0]["metrics"][c] != ranks[1]["metrics"][c]:
+            raise AssertionError(f"18d case {c}: the ranks' metrics differ")
+    log(f"  two ranks over gloo ({wall:.1f} s with start-up): metrics "
+        f"{ranks[0]['metrics']}; both ranks' params bitwise equal; vs "
+        f"Eq.-(5) aggregate of the two clients' masked gradients: rel "
+        f"{worst:.3e} (tol 1e-5); tile-norm launches {ranks[0]['tile_norms']}"
+        f" + {ranks[1]['tile_norms']} [{card}]")
+    if worst > 1e-5:
+        raise AssertionError(f"18d vs Eq. (5): rel {worst:.3e}")
+    return ranks[0]["tile_norms"] + ranks[1]["tile_norms"], err
+
+
+def run_phase18(card: str, floor_ms: float) -> dict:
+    """Phase 18; returns row 2's tile-norm launches, 18c's ranking figures
+    and the smoke-width rankings' largest error."""
+    import torch.distributed as dist
+    phase("  [18a] the launcher's command line")
+    cli, cli_err = run_cli(card, floor_ms)
+    phase("  [18b] smollm-135m at full width: the host step")
+    run_host_full(card)
+    phase("  [18c] the FL step at full width, one rank")
+    fl, regime = run_fl_full(card, floor_ms)
+    dist.destroy_process_group()
+    phase("  [18d] the FL step on two ranks")
+    two, two_err = run_fl_two_ranks(card, floor_ms)
+    return {"cli": cli, "fl": fl, "two": two, "regime": regime,
+            "smoke_err": max(cli_err, two_err)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3478,6 +4127,17 @@ def main() -> int:
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
                                  xlstm["max_abs_err"])
     rows[1].update({f"xlstm_{k}": v for k, v in xlstm.items()
+                    if k != "max_abs_err"})
+
+    phase("[18] the training launcher and the mesh trainer")
+    p18 = run_phase18(card, rows[1]["launch_floor_ms"])
+    rows[1]["train_cli_fl_launches"] = p18["cli"]
+    rows[1]["fl_step_launches"] = p18["fl"]
+    rows[1]["fl_two_rank_launches"] = p18["two"]
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                 p18["regime"]["max_abs_err"],
+                                 p18["smoke_err"])
+    rows[1].update({f"fl_block16_{k}": v for k, v in p18["regime"].items()
                     if k != "max_abs_err"})
     rows += serve_rows
 

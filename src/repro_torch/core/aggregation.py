@@ -15,10 +15,11 @@ buffered rule is Eq. (5).  Stacked per-client gradients are params-shaped
 trees whose leaves lead with the client axis.
 
 Random draws take their uniforms from the caller (``sample_arrivals``),
-as the scheduler's do.  ``psum_aggregate``, the reference's collective
-form, comes with ``torch.distributed`` (ROADMAP.md Queue A, item 10).
-The reference's ``xp=numpy`` lane is these functions on CPU tensors; the
-host reference path (``federated/``) runs them on the model's device.
+as the scheduler's do.  ``psum_aggregate`` is the collective form, one
+client a rank, over a ``torch.distributed`` group (the mesh trainer's
+client group, ``federated.trainer``).  The reference's ``xp=numpy`` lane
+is these functions on CPU tensors; the host reference path
+(``federated/``) runs them on the model's device.
 """
 
 from __future__ import annotations
@@ -26,11 +27,12 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.pruning import tree_map
 
 __all__ = ["sample_arrivals", "aggregate", "staleness_scale",
-           "buffered_weights", "buffered_aggregate"]
+           "buffered_weights", "buffered_aggregate", "psum_aggregate"]
 
 PyTree = Any
 
@@ -99,3 +101,26 @@ def buffered_aggregate(client_grads: PyTree, num_samples, arrivals,
     return _weighted_mean(client_grads, buffered_weights(
         num_samples, arrivals, staleness, kind=kind, alpha=alpha,
         max_staleness=max_staleness, dtype=dtype))
+
+
+def psum_aggregate(local_grad: PyTree, k_i: torch.Tensor, c_i: torch.Tensor,
+                   group=None) -> PyTree:
+    """Eq. (5) across ranks, one client a rank: every rank of ``group``
+    (``None``: the default group) passes its client's gradient, K_i and
+    C_i, and gets the aggregate.  One SUM all-reduce forms the
+    denominator and one per leaf forms sum_i K_i C_i grad_i, on every
+    group size (a group of one sums its own values, as the reference's
+    ``psum`` over an axis of size 1 does).  A leaf times the weight takes
+    JAX's promotion of the two dtypes (a bfloat16 gradient sums in
+    float32).  Zeros where the total weight is 0."""
+    w = k_i * c_i
+    denom = w.clone()
+    dist.all_reduce(denom, op=dist.ReduceOp.SUM, group=group)
+    safe = torch.where(denom > 0.0, denom, 1.0)
+
+    def reduce(leaf):
+        num = leaf.to(torch.promote_types(leaf.dtype, w.dtype)) * w
+        dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
+        return torch.where(denom > 0.0, num / safe, torch.zeros_like(num))
+
+    return tree_map(reduce, local_grad)

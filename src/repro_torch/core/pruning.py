@@ -59,6 +59,7 @@ __all__ = [
     "block_keep",
     "flatten",
     "unflatten",
+    "value_and_grad",
     "leaf_blocks",
     "masks_from_keep",
     "apply_masks",
@@ -118,6 +119,20 @@ def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
     structure), in ``flatten`` order."""
     return unflatten(tree, [fn(*xs) for xs in
                             zip(flatten(tree), *(flatten(t) for t in rest))])
+
+
+def value_and_grad(fn, params: PyTree):
+    """``jax.value_and_grad(fn, has_aux=True)(params)`` by autograd:
+    ``fn(params) -> (scalar, aux)``; returns ``((scalar, aux), grads)``,
+    detached, the grads shaped and typed like ``params`` (zeros where
+    the scalar does not depend on a leaf)."""
+    leaves = [p.detach().requires_grad_() for p in flatten(params)]
+    with torch.enable_grad():
+        value, aux = fn(unflatten(params, leaves))
+    grads = torch.autograd.grad(value, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return ((value.detach(), tree_map(torch.Tensor.detach, aux)),
+            unflatten(params, list(grads)))
 
 
 def prunable(path: tuple, leaf: torch.Tensor) -> bool:

@@ -457,12 +457,10 @@ def masked_scan_grads(loss_fn, params, batch, keeps: Sequence,
         return remasked(g, masks), loss
 
     def single(masks, batch_i):
-        xs = [p.detach().requires_grad_() for p in pruned_at(masks)]
-        with torch.enable_grad():
-            loss = loss_fn(pruning.unflatten(params, xs), batch_i)
-        g = torch.autograd.grad(loss, xs, allow_unused=True,
-                                materialize_grads=True)
-        return [gi[None] for gi in remasked(g, masks)], loss.detach()[None]
+        (loss, _), g = pruning.value_and_grad(
+            lambda ws: (loss_fn(pruning.unflatten(params, ws), batch_i),
+                        None), pruned_at(masks))
+        return [gi[None] for gi in remasked(g, masks)], loss[None]
 
     losses = []
     for j in range(0, n, step):

@@ -35,6 +35,7 @@ from repro_torch.configs import INPUT_SHAPES as T_INPUT_SHAPES
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import pruning as TPR
 from repro_torch.fleet import task as TTASK
+from repro_torch.launch.steps import shape_supported
 from repro_torch.models import model as TM
 
 try:  # the card's machine has no JAX: only the gpu tests run there
@@ -78,16 +79,6 @@ def _inputs(cfg, seed=1):
     mem = (rng.normal(size=(B, cfg.num_memory_tokens, cfg.memory_dim_))
            .astype(np.float32) if cfg.num_memory_tokens else None)
     return toks, mem
-
-
-def shape_supported(cfg, shape) -> bool:
-    """``repro.launch.steps.shape_supported`` on the port's configs:
-    long_500k runs natively on ssm / hybrid models, with the rolling
-    window on full-attention ones, and not at all without a window."""
-    if shape.name != "long_500k":
-        return True
-    return cfg.family in ("ssm", "hybrid") \
-        or cfg.long_context_window is not None
 
 
 # ---------------------------------------------------------------------------

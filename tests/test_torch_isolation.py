@@ -53,5 +53,6 @@ def test_package_covers_the_slice_modules():
                 "fleet.telemetry", "core.tradeoff", "data", "data.synthetic",
                 "data.tokens",
                 "federated", "federated.client", "federated.server",
-                "federated.system"}
+                "federated.system", "federated.trainer", "optimizers",
+                "launch", "launch.steps", "launch.mesh", "launch.train"}
     assert {f"repro_torch.{m}" for m in expected} <= set(_modules())
