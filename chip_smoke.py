@@ -214,6 +214,30 @@ Phases (any failure exits non-zero and prints no result line):
                aggregate of the two clients' masked gradients, its masks
                built here from the plain tile norms; the ranking of these
                params held as in (a).
+ 19. the FL step with each client's weights sharded over "model"
+               (``tp_shard_params``, DTensor) — (a) four ranks sharing
+               the card over gloo (four processes with a timeout) on a
+               ("data" 2, "model" 2) mesh at qwen2-7b's smoke width
+               (float32, seeded qkv biases), 2 steps at block 16 and at
+               block 128: local shards within 1e-5 of the slices of the
+               unsharded step's params, the sharded ranking's masks
+               bitwise those of the same params whole, one tile-norm
+               launch a step a rank, no leaf gathered at block 16 and
+               the gathered leaves counted at block 128, metrics equal
+               on every rank, the two ranks of each "model" coordinate
+               bitwise equal; the kernel on rank (0, 0)'s local shards
+               against its plain version (``norms_regime``); (b) with
+               four cards, ``torchrun`` (NCCL, a card a rank): qwen2-7b
+               at full width in bfloat16 from a seed, block 128, per-
+               client batch (8, 128), rho [0.3, 0.5], k [40, 30], lr
+               1e-2, 3 steps: losses, ms a warm step, peak memory a
+               card, one tile-norm launch a step a rank and no leaf
+               gathered, shards bitwise equal across clients after each
+               step, a rerun bitwise, the 2-layer float32 cut against
+               the unsharded step within 1e-5 with equal tile keeps;
+               with fewer cards one line says so.  ``python3
+               chip_smoke.py --phase19b`` runs phases 1, 2 (the tile-norm
+               kernel alone) and 19b.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
@@ -229,8 +253,10 @@ olmoe-1b-7b fleet; the serving rows and row 2 carry
 ``xlstm_fleet_launches``, 17a's fleet's, and ``xlstm_*``, the tile norms
 on 17a's ranking; row 2 ``train_cli_fl_launches``, ``fl_step_launches``
 and ``fl_two_rank_launches``, phase 18a's ``--fl`` run's, 18c's and 18d's
-two ranks', and ``fl_block16_*``, the tile norms on 18c's ranking); the
-last is the device JSON.
+two ranks', and ``fl_block16_*``, the tile norms on 18c's ranking; row 2
+``tp_shard_launches``, phase 19a's four ranks' over both blocks, and
+``tp_shard_*``, the tile norms on rank (0, 0)'s local shards at block
+16); the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -4010,8 +4036,550 @@ def run_phase18(card: str, floor_ms: float) -> dict:
             "smoke_err": max(cli_err, two_err)}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 19: the FL step with each client's weights sharded over "model"
+# ---------------------------------------------------------------------------
+
+P19_SEED = P18_SEED + 10
+TP_RHO, TP_K, TP_ARRIVALS = [0.3, 0.5], [40.0, 30.0], [1.0, 1.0]
+TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS, TP_SMOKE_LR = 2, 32, 2, 0.5
+TP_BLOCKS, TP_TIMEOUT = (16, 128), 300
+TP_BATCH, TP_SEQ, TP_STEPS, TP_LR, TP_BLOCK = 8, 128, 3, 1e-2, 128
+TP_FULL_TIMEOUT = 600
+
+# 19a: one rank of the ("data" 2, "model" 2) FL step at qwen2-7b's smoke
+# width, four ranks sharing the card over gloo; writes its figures (JSON)
+# and its shards (torch.save)
+TP_RANK_CHILD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+rank, world, store, out, spec = sys.argv[1:6]
+rank, world, spec = int(rank), int(world), json.loads(spec)
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+from torch.distributed.tensor import distribute_tensor
+from repro_torch.configs import get_config
+from repro_torch.core import pruning
+from repro_torch.data.tokens import TokenStream
+from repro_torch.federated import trainer as FT
+from repro_torch.kernels import block_norms as BN
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch import shardings as SH
+from repro_torch.models import model as M
+MESH.gloo_cuda_all_gather()
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+cfg = get_config("qwen2-7b").smoke_variant()
+gen = torch.Generator().manual_seed(spec["seed"])
+params = M.init_params(cfg, gen)
+for name in ("wq", "wk", "wv"):    # the init leaves the qkv biases 0
+    b = params["stages"][0]["b0"]["attn"][name]["b"]
+    b.copy_(0.5 * torch.randn(b.shape, generator=gen))
+params = pruning.tree_map(lambda a: a.to(dev), params)
+tokens = torch.as_tensor(TokenStream(cfg.vocab_size, seed=spec["seed"])
+                         .sample(2 * spec["batch"], spec["seq"]),
+                         dtype=torch.int64, device=dev)
+mesh = MESH.make_host_mesh(data=2, model=2, device=dev)
+me = FT.client_index(mesh, ("data",))
+vec = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+rho, arrivals, k = vec(spec["rho"]), vec(spec["arrivals"]), vec(spec["k"])
+specs = SH.leaves_like(SH.param_shardings(params, mesh, fsdp=False), params)
+placed = pruning.unflatten(params, [
+    distribute_tensor(p, mesh, SH.placements(s, mesh), src_data_rank=None)
+    for p, s in zip(pruning.flatten(params), specs)])
+torch.save([p.to_local().cpu() for p in pruning.flatten(placed)],
+           f"{out}/rank{rank}_start.pt")
+
+
+def local_of(whole, like):
+    return distribute_tensor(whole, mesh, like.placements,
+                             src_data_rank=None).to_local()
+
+
+res = {"coord": list(mesh.get_coordinate()), "blocks": {}}
+for block in spec["blocks"]:
+    steps = {sharded: FT.make_fl_train_step(
+        cfg, mesh, ("data",), block=block, lr=spec["lr"],
+        tp_shard_params=sharded) for sharded in (True, False)}
+    BN.tile_norms.launches = 0
+    pruning.block_norm_state.gathers = 0
+    p, metrics = params, []
+    for _ in range(spec["steps"]):
+        p, m = steps[True](p, {"tokens": tokens}, rho, arrivals, k)
+        metrics.append({"loss": float(m["loss"]),
+                        "achieved_rho": m["achieved_rho"].tolist()})
+    torch.cuda.synchronize()
+    launches, gathers = BN.tile_norms.launches, pruning.block_norm_state.gathers
+    q = params
+    for _ in range(spec["steps"]):
+        q, _ = steps[False](q, {"tokens": tokens}, rho, arrivals, k)
+    worst = max(float((a.to_local() - local_of(b, a)).abs().max())
+                / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(pruning.flatten(p), pruning.flatten(q)))
+    # the sharded ranking against the same params whole, bitwise
+    whole = pruning.tree_map(lambda a: a.full_tensor(), p)
+    sharded_masks = pruning.block_masks(p, rho[me], block=block)
+    whole_masks = pruning.block_masks(whole, rho[me], block=block)
+    masks_equal = all(
+        torch.equal(a.to_local(), local_of(b, a)) for a, b in
+        zip(pruning.flatten(sharded_masks), pruning.flatten(whole_masks)))
+    res["blocks"][str(block)] = {
+        "metrics": metrics, "launches": launches, "gathers": gathers,
+        "rel": worst, "masks_equal": masks_equal}
+    torch.save([a.to_local().cpu() for a in pruning.flatten(p)],
+               f"{out}/rank{rank}_block{block}.pt")
+with open(f"{out}/rank{rank}.json", "w") as f:
+    json.dump(res, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def run_tp_smoke(card: str, floor_ms: float) -> tuple[int, dict]:
+    """19a: the FL step with ``tp_shard_params=True`` on a ("data" 2,
+    "model" 2) mesh of four ranks sharing the card over gloo (four
+    processes, a FileStore, each with a timeout) at qwen2-7b's smoke
+    width (float32, qkv biases), rho [0.3, 0.5], k [40, 30], arrivals
+    [1, 1], 2 steps at block 16 and at block 128: each rank's local
+    shards within 1e-5 of the slices of the unsharded step's params
+    (``tp_shard_params=False`` on the same mesh), masks of the sharded
+    params bitwise those of the same params whole, one tile-norm launch
+    a step a rank, no leaf gathered at block 16 and the gathered leaves
+    counted at block 128 (their 64-wide shards cut 128-tiles), metrics
+    equal on every rank and the two ranks of each "model" coordinate
+    holding bitwise equal shards; then the kernel on rank (0, 0)'s local
+    shards of the start params against its plain version
+    (``norms_regime``).  Returns the ranks' tile-norm launches and the
+    block-16 regime's figures."""
+    import os
+    import tempfile
     import torch
+    spec = {"seed": P19_SEED, "batch": TP_SMOKE_BATCH, "seq": TP_SMOKE_SEQ,
+            "steps": TP_SMOKE_STEPS, "lr": TP_SMOKE_LR, "rho": TP_RHO,
+            "k": TP_K, "arrivals": TP_ARRIVALS, "blocks": list(TP_BLOCKS)}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", TP_RANK_CHILD, str(r), "4",
+             f"{tmp}/store", tmp, json.dumps(spec)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(4)]
+        try:
+            outs = [p.communicate(timeout=TP_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"19a rank {r} exited {p.returncode}:"
+                                     f"\n{out[-3000:]}")
+        wall = time.perf_counter() - t0
+        ranks, shards = [], []
+        for r in range(4):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+            shards.append({b: torch.load(f"{tmp}/rank{r}_block{b}.pt")
+                           for b in TP_BLOCKS})
+        start = [a.to(CARD) for a in torch.load(f"{tmp}/rank0_start.pt")]
+    if sorted(tuple(x["coord"]) for x in ranks) != [(0, 0), (0, 1), (1, 0),
+                                                     (1, 1)]:
+        raise AssertionError(f"19a coordinates {[x['coord'] for x in ranks]}")
+    launches = 0
+    for b in TP_BLOCKS:
+        got = [x["blocks"][str(b)] for x in ranks]
+        if any(g["launches"] != TP_SMOKE_STEPS for g in got):
+            raise AssertionError(f"19a block {b}: tile-norm launches "
+                                 f"{[g['launches'] for g in got]}, want one "
+                                 f"a step a rank")
+        gathers = [g["gathers"] for g in got]
+        if (b == 16) != all(n == 0 for n in gathers):
+            raise AssertionError(f"19a block {b}: gathered leaves {gathers}")
+        if any(g["metrics"] != got[0]["metrics"] for g in got):
+            raise AssertionError(f"19a block {b}: the ranks' metrics differ")
+        if not all(g["masks_equal"] for g in got):
+            raise AssertionError(f"19a block {b}: sharded masks differ from "
+                                 f"the whole params' masks")
+        worst = max(g["rel"] for g in got)
+        if worst > 1e-5:
+            raise AssertionError(f"19a block {b}: local shards vs the "
+                                 f"unsharded step: rel {worst:.3e}")
+        for m in (0, 1):
+            pair = [shards[r][b] for r, x in enumerate(ranks)
+                    if x["coord"][1] == m]
+            if not all(torch.equal(u, v) for u, v in zip(*pair)):
+                raise AssertionError(f"19a block {b}: the shards of model "
+                                     f"coordinate {m} differ across clients")
+        launches += sum(g["launches"] for g in got)
+        log(f"  block {b}: metrics {got[0]['metrics']}; local shards vs the "
+            f"unsharded step rel {worst:.3e} (tol 1e-5); masks bitwise; "
+            f"tile-norm launches {[g['launches'] for g in got]} "
+            f"({TP_SMOKE_STEPS} steps), leaves gathered {gathers}; the two "
+            f"ranks of each model coordinate bitwise equal [{card}]")
+    log(f"  four ranks over gloo ({wall:.1f} s with start-up)")
+    from repro_torch.core import pruning
+    regimes = {}
+    for b in TP_BLOCKS:
+        # rank (0, 0) ranks its local shards of the prunable leaves
+        leaves = [w for w in start if pruning.prunable((), w)]
+        regimes[b] = norms_regime(
+            f"qwen2-7b smoke width block {b}, rank (0, 0)'s local shards "
+            f"(19a)", leaves, [(b, b)] * len(leaves), 20, 3, floor_ms, card)
+    return launches, regimes[16]
+
+
+# 19b: one rank of the four-card run (``torchrun``, NCCL, one card a rank)
+def tp_rank_main(out: str) -> int:
+    """19b, one rank: qwen2-7b at full width in bfloat16 from a seed
+    through ``make_fl_train_step(tp_shard_params=True)`` on ("data" 2,
+    "model" 2), block 128; rank 0 writes the figures to ``out``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_config
+    from repro_torch.core import pruning
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.federated import trainer as FT
+    from repro_torch.kernels import block_norms as BN
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import shardings as SH
+
+    mesh = MESH.make_host_mesh(data=2, model=2)
+    dev = MESH.local_device()
+    rank = dist.get_rank()
+    me = FT.client_index(mesh, ("data",))
+    clients = FT.client_group(mesh, ("data",))
+    peers = dist.get_process_group_ranks(clients)
+
+    def vec(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    rho, arrivals, k = vec(TP_RHO), vec(TP_ARRIVALS), vec(TP_K)
+
+    def placed(cfg, seed):
+        """The seeded model, each leaf replaced by its shard in turn (the
+        whole model is on the card only until then)."""
+        params = model_params(cfg, seed, device=dev)
+        shapes = pruning.tree_map(lambda a: a.to("meta"), params)
+        specs = SH.leaves_like(SH.param_shardings(shapes, mesh, fsdp=False),
+                               shapes)
+        leaves = pruning.flatten(params)
+        del params
+        for i, s in enumerate(specs):
+            leaves[i] = distribute_tensor(leaves[i], mesh,
+                                          SH.placements(s, mesh),
+                                          src_data_rank=None)
+        return pruning.unflatten(shapes, leaves)
+
+    def shards_agree(tree) -> bool:
+        """The two ranks of this "model" coordinate (one a client) hold
+        bitwise equal shards."""
+        same = True
+        for a in pruning.flatten(tree):
+            mine = a.to_local()
+            theirs = mine.clone()
+            dist.broadcast(theirs, src=peers[0], group=clients)
+            same &= bool(torch.equal(theirs, mine))
+        flag = torch.tensor([float(same)], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+
+    res = {"rank": rank}
+    cfg = get_config("qwen2-7b")
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, seed=P19_SEED)
+                             .sample(2 * TP_BATCH, TP_SEQ),
+                             dtype=torch.int64, device=dev)
+    step = FT.make_fl_train_step(cfg, mesh, ("data",), block=TP_BLOCK,
+                                 lr=TP_LR, tp_shard_params=True)
+
+    def run(params):
+        losses, rhos, walls, agree = [], [], [], []
+        for _ in range(TP_STEPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, m = step(params, {"tokens": tokens}, rho, arrivals, k)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            rhos.append(m["achieved_rho"].tolist())
+            agree.append(shards_agree(params))
+        return params, losses, rhos, walls, agree
+
+    start = placed(cfg, P19_SEED + 1)
+    whole_bytes = sum(a.numel() * a.element_size()
+                      for a in pruning.flatten(start))
+    local_bytes = sum(a.to_local().numel() * a.element_size()
+                      for a in pruning.flatten(start))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    BN.tile_norms.launches = 0
+    pruning.block_norm_state.gathers = 0
+    first, losses, rhos, walls, agree = run(start)
+    res.update(losses=losses, achieved_rho=rhos, walls_ms=walls,
+               shards_agree=agree, launches=BN.tile_norms.launches,
+               gathers=pruning.block_norm_state.gathers,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               whole_gib=whole_bytes / 2**30, local_gib=local_bytes / 2**30)
+    # the kernel on this rank's local shards against its plain version
+    leaves = [a.to_local() for a in pruning.flatten(first)
+              if pruning.prunable((), a)]
+    got = BN.tile_norms_group(leaves, [(TP_BLOCK, TP_BLOCK)] * len(leaves))
+    ref = BN.tile_norms_group_plain(leaves, [(TP_BLOCK, TP_BLOCK)]
+                                    * len(leaves))
+    res["norms_rel"] = max(rel_err(g, r)[1] for g, r in zip(got, ref))
+    del got, ref, leaves, start
+    res["profile"] = profile_tp_step(step, first, tokens, rho, arrivals, k)
+    again, losses2, _, _, _ = run(placed(cfg, P19_SEED + 1))
+    res["rerun_bitwise"] = losses2 == losses and all(
+        torch.equal(a.to_local(), b.to_local()) for a, b in
+        zip(pruning.flatten(first), pruning.flatten(again)))
+    del first, again
+    torch.cuda.empty_cache()
+    # the 2-layer float32 cut: sharded against unsharded, one step
+    cut = two_layers(cfg)
+    whole = model_params(cut, P19_SEED + 2, device=dev)
+    steps = {sharded: FT.make_fl_train_step(
+        cut, mesh, ("data",), block=TP_BLOCK, lr=TP_LR,
+        tp_shard_params=sharded) for sharded in (True, False)}
+    tp_new, tp_m = steps[True](whole, {"tokens": tokens}, rho, arrivals,
+                               k)
+    rep_new, rep_m = steps[False](whole, {"tokens": tokens}, rho,
+                                  arrivals, k)
+
+    def local_of(w, like):
+        return distribute_tensor(w, mesh, like.placements,
+                                 src_data_rank=None).to_local()
+
+    res["cut_rel"] = max(
+        rel_err(a.to_local().double(), local_of(b, a).double())[1]
+        for a, b in zip(pruning.flatten(tp_new), pruning.flatten(rep_new)))
+    res["cut_rho"] = [tp_m["achieved_rho"].tolist(),
+                      rep_m["achieved_rho"].tolist()]
+    start_cut = pruning.unflatten(whole, [
+        distribute_tensor(p, mesh, a.placements, src_data_rank=None)
+        for p, a in zip(pruning.flatten(whole), pruning.flatten(tp_new))])
+    sharded_masks = pruning.block_masks(start_cut, rho[me], block=TP_BLOCK)
+    whole_masks = pruning.block_masks(whole, rho[me], block=TP_BLOCK)
+    res["cut_keeps_equal"] = all(
+        torch.equal(a.to_local(), local_of(b, a)) for a, b in
+        zip(pruning.flatten(sharded_masks), pruning.flatten(whole_masks)))
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, res)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(gathered, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Within the block, the calls and the input bytes of every
+    collective DTensor issues (its functional collectives) and of the
+    port's own (``dist.all_reduce`` / ``all_gather``), by kind:
+    ``{kind: [calls, GB]}``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    moved: dict = {}
+    patched, inside = [], [0]    # a collective that calls another counts once
+    for mod, names in ((funcol, ("all_gather_single", "all_gather_tensor",
+                                 "reduce_scatter_tensor", "all_reduce",
+                                 "all_to_all_single")),
+                       (dist, ("all_reduce", "all_gather"))):
+        for name in names:
+            original = getattr(mod, name, None)
+            if original is None:
+                continue
+            kind = f"{'dtensor' if mod is funcol else 'c10d'} {name}"
+
+            def counted(x, *a, _original=original, _kind=kind, **kw):
+                if not inside[0]:
+                    t = x if isinstance(x, torch.Tensor) else a[0]
+                    entry = moved.setdefault(_kind, [0, 0.0])
+                    entry[0] += 1
+                    entry[1] += t.numel() * t.element_size() / 1e9
+                inside[0] += 1
+                try:
+                    return _original(x, *a, **kw)
+                finally:
+                    inside[0] -= 1
+
+            patched.append((mod, name, original))
+            setattr(mod, name, counted)
+    try:
+        yield moved
+    finally:
+        for mod, name, original in patched:
+            setattr(mod, name, original)
+
+
+def profile_tp_step(step, params, tokens, rho, arrivals, k) -> dict:
+    """One warm sharded step under torch.profiler on this rank: its wall,
+    the device's busy ms split into collectives (NCCL kernels), GEMMs,
+    the tile norms and the rest, device ops, host-side aten ops (what
+    DTensor dispatches) and the five longest kernels.  Empty where the
+    profiler records no device time."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            counted_collectives() as moved:
+        t0 = time.perf_counter()
+        new, _ = step(params, {"tokens": tokens}, rho, arrivals, k)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del new
+    events = prof.key_averages()
+    # "nccl:<op>" events annotate the collectives' kernels on the device
+    # timeline: no device work of their own
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("nccl:")]
+    busy = {"collectives": 0.0, "gemm": 0.0, "tile_norms": 0.0,
+            "other": 0.0}
+    ops = dict.fromkeys(busy, 0)
+    for e in kernels:
+        name = e.key.lower()
+        cat = ("collectives" if "nccl" in name else
+               "tile_norms" if "tile_norms" in name else
+               "gemm" if "gemm" in name or "xmma" in name
+               or "cutlass" in name else "other")
+        busy[cat] += e.self_device_time_total / 1e3
+        ops[cat] += e.count
+    if sum(busy.values()) <= 0:
+        return {"wall_ms": wall, "moved": moved}
+    return {"wall_ms": wall, "busy_ms": busy, "ops": ops, "moved": moved,
+            "device_ops": sum(e.count for e in kernels),
+            "aten_ops": sum(e.count for e in events
+                            if e.device_type == torch.autograd.DeviceType.CPU
+                            and e.key.startswith("aten::")),
+            "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                    for e in sorted(kernels, key=lambda e:
+                                    -e.self_device_time_total)[:5]]}
+
+
+def run_tp_full(card: str) -> None:
+    """19b: with four cards, ``tp_rank_main`` under ``torchrun`` (one rank
+    a card, NCCL, a process group of its own, killed whole at its
+    timeout): the loss of each step, ms a warm step, peak memory a card
+    against what one card would hold unsharded (reckoned), one tile-norm
+    launch a step a rank with no leaf gathered, the two ranks of each
+    "model" coordinate bitwise equal after each step, a rerun bitwise,
+    the kernel on the local shards within TOL of its plain version, and
+    the 2-layer float32 cut against the unsharded step within 1e-5 with
+    equal tile keeps.  With fewer cards, one line says so."""
+    import os
+    import signal
+    import tempfile
+    import numpy as np
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"  19b (qwen2-7b at full width over four cards) needs four "
+            f"cards; this machine has {cards}")
+        return
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/tp.json"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "4", str(ROOT / "chip_smoke.py"),
+             "--tp-rank", out], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            text = proc.communicate(timeout=TP_FULL_TIMEOUT)[0]
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"19b exited {proc.returncode}:\n"
+                                 f"{text[-4000:]}")
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            ranks = json.load(f)
+    r0 = ranks[0]
+    warm = float(np.median([w for r in ranks for w in r["walls_ms"][1:]]))
+    unsharded = 6 * r0["whole_gib"]
+    log(f"  qwen2-7b full width, bfloat16, ({'data'} 2, model 2), block "
+        f"{TP_BLOCK}, per-client batch ({TP_BATCH}, {TP_SEQ}), rho {TP_RHO},"
+        f" k {TP_K}, lr {TP_LR}: losses {r0['losses']}, achieved rho "
+        f"{r0['achieved_rho'][-1]}, walls {fmt_walls(r0['walls_ms'])} "
+        f"(rank 0), warm step {warm:.1f} ms (median over ranks) [{card}]")
+    log(f"  peak device memory a card "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB, params "
+        f"{r0['local_gib']:.2f} GiB a card of {r0['whole_gib']:.2f}; "
+        f"unsharded one card would hold ~{unsharded:.1f} GiB (6 x "
+        f"{r0['whole_gib']:.2f} GiB: params, masked params, grads, masked "
+        f"grads, aggregate, new params; reckoned) [{card}]")
+    log(f"  tile-norm launches {[r['launches'] for r in ranks]} "
+        f"({TP_STEPS} steps), leaves gathered "
+        f"{[r['gathers'] for r in ranks]}; shards of each model coordinate "
+        f"bitwise equal after each step "
+        f"{[all(r['shards_agree']) for r in ranks]}; rerun bitwise "
+        f"{[r['rerun_bitwise'] for r in ranks]}; the kernel on local shards "
+        f"vs plain rel {max(r['norms_rel'] for r in ranks):.3e} "
+        f"({wall:.1f} s with start-up) [{card}]")
+    prof = r0["profile"]
+    if "busy_ms" in prof:
+        busy = prof["busy_ms"]
+        log(f"  profiled warm step (rank 0): wall {prof['wall_ms']:.1f} ms, "
+            f"device busy {sum(busy.values()):.2f} ms "
+            f"({100 * sum(busy.values()) / prof['wall_ms']:.1f}%): "
+            + ", ".join(f"{k} {v:.2f} ms ({prof['ops'][k]} ops)"
+                        for k, v in busy.items())
+            + f"; {prof['device_ops']} device ops, {prof['aten_ops']} "
+            f"aten ops on the host (a collective's kernel time includes "
+            f"its wait for the other rank) [{card}]")
+        for name, ms, count in prof["top"]:
+            log(f"    {ms:8.3f} ms  x{count:<5d} {name}")
+    else:
+        log(f"  profiled warm step (rank 0): wall {prof['wall_ms']:.1f} ms, "
+            f"device time not measured (no CUDA events)")
+    log("  collectives of that step (rank 0; calls / GB of input): "
+        + ", ".join(f"{kind} {n} / {gb:.3f}"
+                    for kind, (n, gb) in sorted(prof["moved"].items())))
+    log(f"  2-layer float32 cut, sharded vs unsharded step: rel "
+        f"{max(r['cut_rel'] for r in ranks):.3e} (tol 1e-5), achieved rho "
+        f"{r0['cut_rho'][0]} vs {r0['cut_rho'][1]}, tile keeps equal "
+        f"{[r['cut_keeps_equal'] for r in ranks]} [{card}]")
+    if not all(np.isfinite(r0["losses"])) or \
+            any(r["losses"] != r0["losses"] for r in ranks):
+        raise AssertionError("19b: losses not finite or not equal on ranks")
+    if any(r["launches"] != TP_STEPS or r["gathers"] for r in ranks):
+        raise AssertionError("19b: want one tile-norm launch a step a rank "
+                             "and no leaf gathered")
+    if not all(all(r["shards_agree"]) and r["rerun_bitwise"]
+               and r["cut_keeps_equal"] for r in ranks):
+        raise AssertionError("19b: shards, rerun or tile keeps differ")
+    if max(r["cut_rel"] for r in ranks) > 1e-5 or \
+            r0["cut_rho"][0] != r0["cut_rho"][1]:
+        raise AssertionError("19b: the 2-layer cut differs from the "
+                             "unsharded step")
+    if max(r["norms_rel"] for r in ranks) > TOL:
+        raise AssertionError("19b: the kernel on local shards disagrees")
+
+
+def main(argv: list) -> int:
+    """No arguments: every phase, on one card.  ``--phase19b``: the
+    device line, the tile-norm kernel's build and phase 19b alone (the
+    four-card run)."""
+    import torch
+    only_19b = argv == ["--phase19b"]
+    if argv and not only_19b:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing is run on the CPU",
               file=sys.stderr)
@@ -4035,15 +4603,20 @@ def main() -> int:
     phase("[2] build")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    reports = build.build()
-    for name in build.SOURCES:
+    names = ("block_norms",) if only_19b else build.SOURCES
+    reports = build.build(names)
+    for name in names:
         build.load(name)
-    log(f"  built {', '.join(build.SOURCES)} in "
+    log(f"  built {', '.join(names)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if only_19b:
+        phase("[19b] qwen2-7b at full width over four cards")
+        run_tp_full(card)
+        return 0
 
     phase("[3] kernels against their plain versions")
     warm_profiler()
@@ -4139,6 +4712,17 @@ def main() -> int:
                                  p18["smoke_err"])
     rows[1].update({f"fl_block16_{k}": v for k, v in p18["regime"].items()
                     if k != "max_abs_err"})
+
+    phase("[19] the FL step with each client's weights sharded over model")
+    phase("  [19a] four ranks sharing the card, qwen2-7b's smoke width")
+    tp_launches, tp_regime = run_tp_smoke(card, rows[1]["launch_floor_ms"])
+    rows[1]["tp_shard_launches"] = tp_launches
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                 tp_regime["max_abs_err"])
+    rows[1].update({f"tp_shard_{k}": v for k, v in tp_regime.items()
+                    if k != "max_abs_err"})
+    phase("  [19b] qwen2-7b at full width over four cards")
+    run_tp_full(card)
     rows += serve_rows
 
     phase("[end]")
@@ -4150,8 +4734,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2]))
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Exception:  # any failed phase: report and exit non-zero
         traceback.print_exc()
         sys.exit(1)

@@ -1,8 +1,9 @@
 """grok-1-314b [moe] — 8 experts top-2 [hf:xai-org/grok-1].
 
-315.7 B params (631 GB in bfloat16): full width needs more than one
-card, and the port does not shard a model yet (ROADMAP.md Queue A, item
-10); one card runs its smoke width."""
+315.7 B params (631 GB in bfloat16): more than four H100s hold (320
+GB) even with its weights sharded over them (``launch.shardings``, the
+FL step's ``tp_shard_params``), so its full width waits for the
+production mesh; one card runs its smoke width."""
 from repro_torch.configs.base import ArchConfig, BlockSpec, StageSpec
 from repro_torch.models.moe import MoESpec
 

@@ -28,6 +28,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.pruning import tree_map
 
@@ -112,13 +113,25 @@ def psum_aggregate(local_grad: PyTree, k_i: torch.Tensor, c_i: torch.Tensor,
     group size (a group of one sums its own values, as the reference's
     ``psum`` over an axis of size 1 does).  A leaf times the weight takes
     JAX's promotion of the two dtypes (a bfloat16 gradient sums in
-    float32).  Zeros where the total weight is 0."""
+    float32).  Zeros where the total weight is 0.
+
+    A DTensor leaf (a tensor-sharded model) is reduced shard by shard:
+    every rank of ``group`` holds the same shard of its client's
+    gradient, so the all-reduce of the local shards is the shard of the
+    aggregate, which comes back with the leaf's placements."""
     w = k_i * c_i
     denom = w.clone()
     dist.all_reduce(denom, op=dist.ReduceOp.SUM, group=group)
     safe = torch.where(denom > 0.0, denom, 1.0)
 
     def reduce(leaf):
+        if isinstance(leaf, DTensor):
+            if any(p.is_partial() for p in leaf.placements):
+                raise ValueError(f"psum_aggregate takes sharded or "
+                                 f"replicated leaves, got {leaf.placements}")
+            return DTensor.from_local(reduce(leaf.to_local()),
+                                      leaf.device_mesh, leaf.placements,
+                                      shape=leaf.shape, stride=leaf.stride())
         num = leaf.to(torch.promote_types(leaf.dtype, w.dtype)) * w
         dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
         return torch.where(denom > 0.0, num / safe, torch.zeros_like(num))

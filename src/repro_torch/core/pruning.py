@@ -31,6 +31,20 @@ masked params.  Per-leaf state lists follow ``flatten``'s order, which is
 The tile norms come from ``kernels.block_norms.tile_norms_group``: for
 tensors on the card one CUDA launch takes every prunable leaf of a
 ``block_norm_state`` call, in its own type; on the CPU the plain version.
+
+Params may be DTensors (a tensor-sharded model, ``federated.trainer``).
+The grouped call then takes each leaf's local shard, still one launch a
+ranking a rank, and the per-tile norms of a leaf are all-gathered over
+its sharding group into its whole grid (a tile's segments fold in a
+fixed order, so where every shard boundary falls on a tile boundary the
+norms, and so the masks, are bitwise the unsharded ones).  A leaf whose
+shard boundaries cut tiles is gathered whole for the ranking alone
+(``block_norm_state.gathers`` counts them): partial norms of a tile from
+two shards would fold in another order.  The ranking itself runs on the
+whole grids, plain tensors, and each rank builds the masks of its own
+shards, DTensors with their leaves' placements.  ``apply_masks``,
+``achieved_rate`` (over global elements) and ``value_and_grad`` (grads
+with the params' placements, the value whole) take DTensors too.
 """
 
 from __future__ import annotations
@@ -39,6 +53,8 @@ import numbers
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.kernels import block_norms as _bn
 from repro_torch.kernels import block_sparse_matmul as _bsm
@@ -121,18 +137,29 @@ def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
                             zip(flatten(tree), *(flatten(t) for t in rest))])
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a plain tensor; a plain tensor as is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def value_and_grad(fn, params: PyTree):
     """``jax.value_and_grad(fn, has_aux=True)(params)`` by autograd:
     ``fn(params) -> (scalar, aux)``; returns ``((scalar, aux), grads)``,
     detached, the grads shaped and typed like ``params`` (zeros where
-    the scalar does not depend on a leaf)."""
+    the scalar does not depend on a leaf).  A DTensor leaf's grad is
+    redistributed to the leaf's placements; a DTensor value or aux comes
+    back whole, as a plain tensor."""
     leaves = [p.detach().requires_grad_() for p in flatten(params)]
     with torch.enable_grad():
         value, aux = fn(unflatten(params, leaves))
     grads = torch.autograd.grad(value, leaves, allow_unused=True,
                                 materialize_grads=True)
-    return ((value.detach(), tree_map(torch.Tensor.detach, aux)),
-            unflatten(params, list(grads)))
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(p, DTensor) and g.placements != p.placements
+             else g for p, g in zip(leaves, grads)]
+    return ((_whole(value.detach()),
+             tree_map(lambda a: _whole(a.detach()), aux)),
+            unflatten(params, grads))
 
 
 def prunable(path: tuple, leaf: torch.Tensor) -> bool:
@@ -148,8 +175,7 @@ def _flatten_prunable(params: PyTree) -> tuple[list, list[bool]]:
 
 def ones_masks(params: PyTree) -> PyTree:
     """rho = 0 masks: everything kept."""
-    return tree_map(lambda w: torch.ones(w.shape, dtype=torch.bool,
-                                         device=w.device), params)
+    return tree_map(lambda w: torch.ones_like(w, dtype=torch.bool), params)
 
 
 def _rate(rate, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -256,17 +282,95 @@ def _leaf_state(leaf: torch.Tensor, block, norms: torch.Tensor
                           cum_frac=cum / cum[-1])
 
 
+def _contiguous_stride(shape: tuple) -> tuple:
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.append(step)
+        step *= n
+    return tuple(reversed(stride))
+
+
+def _local_box(x: DTensor) -> list[slice]:
+    """The global index range of each dim that this rank's shard of ``x``
+    holds.  A dim sharded over several mesh dims is chunked in mesh
+    order, the first the slowest; every sharded dim must divide evenly."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    start, size = [0] * x.ndim, list(x.shape)
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            n = mesh.size(m)
+            if size[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(x.shape)} does not "
+                                 f"divide over {n} ranks")
+            size[p.dim] //= n
+            start[p.dim] += coord[m] * size[p.dim]
+        elif not p.is_replicate():
+            raise ValueError(f"{p} is neither Shard nor Replicate")
+    return [slice(a, a + n) for a, n in zip(start, size)]
+
+
+def _from_local(like: DTensor, local: torch.Tensor, lead: tuple = ()
+                ) -> DTensor:
+    """``local``, this rank's shard of a tensor of shape ``lead +
+    like.shape`` placed as ``like`` (its sharded dims shifted past
+    ``lead``)."""
+    shift = len(lead)
+    places = [Shard(p.dim + shift) if isinstance(p, Shard) else p
+              for p in like.placements]
+    shape = tuple(lead) + tuple(like.shape)
+    return DTensor.from_local(local, like.device_mesh, places, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _tiles_whole(x: DTensor, blk: tuple[int, int]) -> bool:
+    """Every shard boundary of ``x`` falls on a tile boundary."""
+    box = _local_box(x)
+    return all((box[d].stop - box[d].start) % b == 0 or
+               box[d].stop - box[d].start == x.shape[d]
+               for d, b in ((x.ndim - 2, blk[0]), (x.ndim - 1, blk[1])))
+
+
+def _whole_norms(leaf: DTensor, local: torch.Tensor) -> torch.Tensor:
+    """The whole tile-norm grid of a leaf from each rank's grid of its
+    shard, all-gathered over the leaf's sharding group one mesh dim at a
+    time, the last first (so a dim sharded over several nests in mesh
+    order).  ``dist.all_gather`` and not DTensor's: gloo has no
+    functional all-gather of CUDA tensors."""
+    mesh, out = leaf.device_mesh, local
+    for m in reversed(range(mesh.ndim)):
+        p = leaf.placements[m]
+        if isinstance(p, Shard):
+            parts = [torch.empty_like(out) for _ in range(mesh.size(m))]
+            dist.all_gather(parts, out.contiguous(), group=mesh.get_group(m))
+            out = torch.cat(parts, dim=p.dim)
+    return out
+
+
 def _leaf_norms(params: PyTree, block):
     """(leaves, flags, blocks, per-leaf tile norms or ``None``): every
-    prunable leaf's norms from one ``tile_norms_group`` call."""
+    prunable leaf's norms from one ``tile_norms_group`` call, a DTensor
+    leaf's from its local shard (whole grids all-gathered) or, where its
+    shard boundaries cut tiles, from the leaf gathered whole."""
     leaves, flags = _flatten_prunable(params)
     blocks = leaf_blocks(flags, block)
     ranked = [i for i, f in enumerate(flags) if f]
-    got = _bn.tile_norms_group([leaves[i] for i in ranked],
-                               [blocks[i] for i in ranked])
+    inputs, shards = [], []
+    for i in ranked:
+        w = leaves[i]
+        if isinstance(w, DTensor):
+            shards.append(_tiles_whole(w, blocks[i]))
+            if shards[-1]:
+                w = w.to_local()
+            else:
+                w = w.full_tensor()
+                block_norm_state.gathers += 1
+        else:
+            shards.append(False)
+        inputs.append(w)
+    got = _bn.tile_norms_group(inputs, [blocks[i] for i in ranked])
     norms: list = [None] * len(leaves)
-    for i, n in zip(ranked, got):
-        norms[i] = n
+    for i, n, shard in zip(ranked, got, shards):
+        norms[i] = _whole_norms(leaves[i], n) if shard else n
     return leaves, flags, blocks, norms
 
 
@@ -281,6 +385,9 @@ def block_norm_state(params: PyTree, block=DEFAULT_BLOCK
     leaves, _, blocks, norms = _leaf_norms(params, block)
     return [None if n is None else _leaf_state(w, blk, n)
             for w, blk, n in zip(leaves, blocks, norms)]
+
+
+block_norm_state.gathers = 0
 
 
 def block_thresholds(state: BlockNormState, rate: torch.Tensor
@@ -312,10 +419,31 @@ def block_keep(state: list[Optional[BlockNormState]], rates: torch.Tensor
     return out
 
 
+def _shard_mask(leaf: DTensor, f: bool, keep, blk, lead: tuple) -> DTensor:
+    """This rank's shard of a DTensor leaf's mask, placed as the leaf:
+    its slice of the whole tile keeps expanded (or, where shard
+    boundaries cut tiles, its slice of the whole mask)."""
+    box = _local_box(leaf)
+    pre = (slice(None),) * len(lead)
+    local_shape = tuple(lead) + tuple(b.stop - b.start for b in box)
+    if not f:
+        local = torch.ones(local_shape, dtype=torch.bool, device=leaf.device)
+    elif _tiles_whole(leaf, blk):
+        tiles = [slice(b.start // t, -(-b.stop // t))
+                 for b, t in zip(box[-2:], blk)]
+        local = _bsm.expand_mask(keep[pre + tuple(box[:-2]) + tuple(tiles)],
+                                 local_shape, *blk)
+    else:
+        local = _bsm.expand_mask(keep, leaf.shape, *blk)[pre + tuple(box)]
+    return _from_local(leaf, local, lead)
+
+
 def _tile_masks(leaves, flags, blocks, keeps, lead: tuple = ()) -> list:
     """Tile keeps -> element masks; unprunable leaves all ones, with the
-    rate batch's ``lead`` dims."""
-    return [_bsm.expand_mask(keep, leaf.shape, *blk) if f
+    rate batch's ``lead`` dims.  DTensor leaves get DTensor masks."""
+    return [_shard_mask(leaf, f, keep, blk, lead)
+            if isinstance(leaf, DTensor)
+            else _bsm.expand_mask(keep, leaf.shape, *blk) if f
             else torch.ones(lead + tuple(leaf.shape), dtype=torch.bool,
                             device=leaf.device)
             for leaf, f, keep, blk in zip(leaves, flags, keeps, blocks)]
@@ -379,9 +507,10 @@ def block_masks(params: PyTree, prune_rate, block=DEFAULT_BLOCK,
 
 def achieved_rate(params: PyTree, masks: PyTree) -> torch.Tensor:
     """Realized rho = pruned / total elements over the prunable leaves, in
-    float32 (masks with leading rate dims give one rate each)."""
+    float32 (masks with leading rate dims give one rate each); DTensor
+    masks count their global elements."""
     leaves, flags = _flatten_prunable(params)
-    kept = sum(m.to(torch.float32).sum(dim=tuple(range(-w.ndim, 0)))
+    kept = sum(_whole(m.to(torch.float32).sum(dim=tuple(range(-w.ndim, 0))))
                for w, m, f in zip(leaves, flatten(masks), flags) if f)
     total = float(sum(w.numel() for w, f in zip(leaves, flags) if f))
     return 1.0 - kept / total

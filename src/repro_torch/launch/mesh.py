@@ -9,7 +9,10 @@ up, ``make_mesh`` starts one (NCCL on the card, gloo on the CPU): over
 one over an in-process ``HashStore``, which needs no launcher
 environment and no network.  A caller may start the group itself first.
 ``local_device`` gives each rank its own card (``LOCAL_RANK``).
-Importing this module touches no device and starts no group.
+Ranks that share one card run over gloo (NCCL takes one rank a card):
+``gloo_cuda_all_gather`` then routes DTensor's all-gathers through one
+that gloo has for CUDA tensors.  Importing this module touches no
+device and starts no group.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["SINGLE_POD", "MULTI_POD", "local_device", "make_mesh",
            "make_production_mesh", "make_host_mesh", "make_fleet_mesh",
-           "required_devices"]
+           "required_devices", "gloo_cuda_all_gather"]
 
 SINGLE_POD = (16, 16)                     # 256 ranks
 MULTI_POD = (2, 16, 16)                   # 2 pods = 512 ranks
@@ -116,3 +119,43 @@ def make_fleet_mesh(cells: int | None = None, data: int | None = None,
     elif data is None:
         data = n // cells
     return make_mesh((cells, data), ("cells", "data"), device)
+
+
+def _process_group(group) -> dist.ProcessGroup:
+    """The process group a functional collective's ``group`` names: a
+    group, a 1-D mesh, (mesh, mesh dim) or a group name."""
+    if isinstance(group, DeviceMesh):
+        return group.get_group()
+    if isinstance(group, tuple):
+        mesh, dim = group
+        return mesh.get_group(dim)
+    if isinstance(group, str):
+        return dist.distributed_c10d._resolve_process_group(group)
+    return group
+
+
+def gloo_cuda_all_gather() -> None:
+    """Route DTensor's all-gathers of CUDA tensors over a gloo group
+    through ``dist.all_gather``, which gathers the same bytes.  Gloo's
+    functional all-gather of CUDA tensors (``all_gather_into_tensor``
+    of ``_c10d_functional``, what DTensor issues for Shard -> Replicate)
+    crashes the process on an H100 under torch 2.11, while its
+    all-reduce, reduce-scatter and all-to-all work.  Other backends and
+    CPU tensors keep the functional collective.  Idempotent."""
+    from torch.distributed import _functional_collectives as funcol
+    for name in ("all_gather_single", "all_gather_tensor"):
+        original = getattr(funcol, name, None)
+        if original is None or getattr(original, "gloo_cuda", False):
+            continue
+
+        def gathered(self, gather_dim, group, tag="", _original=original):
+            pg = _process_group(group)
+            if not self.is_cuda or dist.get_backend(pg) != "gloo":
+                return _original(self, gather_dim, group, tag)
+            parts = [torch.empty_like(self)
+                     for _ in range(dist.get_world_size(pg))]
+            dist.all_gather(parts, self.contiguous(), group=pg)
+            return torch.cat(parts, dim=gather_dim)
+
+        gathered.gloo_cuda = True
+        setattr(funcol, name, gathered)

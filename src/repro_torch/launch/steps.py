@@ -10,9 +10,11 @@ As in the reference, the prefill step computes the full forward and the
 last position's logits and writes no cache.  ``batch_specs`` and
 ``cache_specs`` give tensors on the ``meta`` device in place of the
 reference's ``ShapeDtypeStruct``s: they allocate nothing, so they run at
-full width.  The reference's ``input_specs`` pairs these with shardings
-of a production mesh; it waits for the sharding slice (ROADMAP.md Queue
-A, item 10).
+full width.  ``input_specs`` pairs them with their specs on a mesh
+(``launch.shardings``; a ``DeviceMesh`` or any object with its dim names
+and sizes, a 16 x 16 production mesh included) and runs nothing:
+running these steps sharded is the dry run's business, which waits for
+the XLA tooling's slice (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -23,12 +25,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.pruning import value_and_grad
+from repro_torch.launch import shardings as SH
 from repro_torch.models import model as M
 from repro_torch.optimizers import sgd
 
 __all__ = ["decode_window", "shape_supported", "make_train_step",
            "make_prefill_step", "make_serve_step", "batch_specs",
-           "cache_specs"]
+           "cache_specs", "input_specs"]
 
 
 def decode_window(cfg: ArchConfig, shape: InputShape) -> Optional[int]:
@@ -97,3 +100,38 @@ def cache_specs(cfg: ArchConfig, shape: InputShape) -> dict:
     are int64, torch's index type, where the reference's are int32)."""
     return M.init_cache(cfg, shape.global_batch, shape.seq_len,
                         window=decode_window(cfg, shape), device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, mesh) -> dict:
+    """The step of ``shape``'s mode, its abstract args (``meta`` trees)
+    and the specs of its inputs and outputs on ``mesh`` (``None``: left
+    to propagation).  Serving (prefill, decode) keeps tensor-only weight
+    residency when it fits (``serving_fsdp_needed``); training keeps the
+    2-D fsdp x tensor sharding."""
+    params_shape = M.init_params(cfg, None)
+    fsdp = shape.mode == "train" or SH.serving_fsdp_needed(params_shape,
+                                                           mesh)
+    p_spec = SH.param_shardings(params_shape, mesh, fsdp=fsdp)
+    if shape.mode in ("train", "prefill"):
+        batch = batch_specs(cfg, shape)
+        train = shape.mode == "train"
+        # loss_fn's metrics, each a scalar
+        metrics = {k: torch.empty((), device="meta")
+                   for k in ("loss", "moe_aux")}
+        return {
+            "step": make_train_step(cfg) if train else make_prefill_step(cfg),
+            "args": (params_shape, batch),
+            "in_specs": (p_spec, SH.batch_shardings(batch, mesh)),
+            "out_specs": (p_spec, SH.replicated(metrics, mesh)) if train
+            else None,
+        }
+    token = torch.empty((shape.global_batch, 1), dtype=torch.int32,
+                        device="meta")
+    cache = cache_specs(cfg, shape)
+    c_spec = SH.cache_shardings(cache, mesh)
+    return {
+        "step": make_serve_step(cfg, decode_window(cfg, shape)),
+        "args": (params_shape, token, cache),
+        "in_specs": (p_spec, SH.batch_shardings(token, mesh), c_spec),
+        "out_specs": (None, c_spec),
+    }

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import AttnSpec, MLASpec
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 
 NEG_INF = -1e30
 
@@ -80,7 +81,10 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
-    """Masked GQA attention; ``mask`` broadcasts to (B,S,H,T)."""
+    """Masked GQA attention; ``mask`` broadcasts to (B,S,H,T).  DTensor
+    inputs are replicated first: DTensor cannot flatten the einsums'
+    (batch, head) dims with the head dim sharded."""
+    q, k, v = S.replicate(q), S.replicate(k), S.replicate(v)
     scores = _gqa_scores(q, k, scale)
     if mask is not None:
         scores = scores + _mask_bias(mask)
@@ -111,14 +115,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     does; a ragged T is padded to a chunk multiple and the padding
     masked.  Autograd keeps each chunk pair's probabilities for the
     backward (the reference recomputes them under ``jax.checkpoint``:
-    the same values, more memory here)."""
+    the same values, more memory here).
+
+    Context parallelism: the query sequence splits into P contiguous
+    stripes, P = ``axis_size("q_stripes")`` (1 without sharding rules),
+    constrained over the "q_stripes" logical dim, so the tensor dim does
+    attention work even where head counts do not divide it.  Each step
+    of the query loop advances every stripe one chunk; the keys and
+    values are read by every stripe."""
     b, s, h, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     vd = v.shape[-1]
     g = h // hkv
+    p_stripes = S.axis_size("q_stripes")
+    if p_stripes > 1 and s % p_stripes == 0 and s >= 2 * p_stripes:
+        q_chunk = min(q_chunk, s // p_stripes)   # chunks that fit P stripes
+    else:
+        p_stripes = 1
+    stripe = s // p_stripes
     q_chunk = min(q_chunk, s)
     kv_chunk = min(kv_chunk, t)
-    while s % q_chunk:
+    while stripe % q_chunk:
         q_chunk //= 2
     t_valid = t
     if t % kv_chunk:
@@ -126,41 +143,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         t += pad
-    nq, nk = s // q_chunk, t // kv_chunk
-    qc = q.reshape(b, nq, q_chunk, hkv, g, hd).to(torch.float32)
+    nq, nk = stripe // q_chunk, t // kv_chunk
+    # (B, P, nq, qc, Hkv, G, hd): the query loop runs over nq
+    qc = q.reshape(b, p_stripes, nq, q_chunk, hkv, g, hd).to(torch.float32)
     kc = k.reshape(b, nk, kv_chunk, hkv, hd).to(torch.float32)
     vc = v.reshape(b, nk, kv_chunk, hkv, vd).to(torch.float32)
+    qc = S.constrain(qc, "batch", "q_stripes", None, None, "kv", None, None)
+    kc = S.constrain(kc, "batch", None, None, "kv", None)
+    vc = S.constrain(vc, "batch", None, None, "kv", None)
     dev = q.device
+    stripe_base = (torch.arange(p_stripes, device=dev) * stripe)[:, None]
     outs = []
     for qi in range(nq):
-        q_blk = qc[:, qi]
-        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((b, q_chunk, hkv, g), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, q_chunk, hkv, g), dtype=torch.float32,
-                        device=dev)
-        acc = torch.zeros((b, q_chunk, hkv, g, vd), dtype=torch.float32,
-                          device=dev)
+        q_blk = qc[:, :, qi]                                 # (B,P,qc,...)
+        qpos = stripe_base + qi * q_chunk + torch.arange(q_chunk,
+                                                         device=dev)
+        m = S.constrain(torch.full((b, p_stripes, q_chunk, hkv, g), NEG_INF,
+                                   dtype=torch.float32, device=dev),
+                        "batch", "q_stripes", None, "kv", None)
+        l = S.constrain(torch.zeros((b, p_stripes, q_chunk, hkv, g),
+                                    dtype=torch.float32, device=dev),
+                        "batch", "q_stripes", None, "kv", None)
+        acc = S.constrain(torch.zeros((b, p_stripes, q_chunk, hkv, g, vd),
+                                      dtype=torch.float32, device=dev),
+                          "batch", "q_stripes", None, "kv", None, None)
         for kj in range(nk):
-            scores = torch.einsum("bqkgd,btkd->bqkgt", q_blk,
+            scores = torch.einsum("bpqkgd,btkd->bpqkgt", q_blk,
                                   kc[:, kj]) * scale
             kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
-            valid = (kpos < t_valid)[None, :].expand(q_chunk, kv_chunk)
+            valid = (kpos < t_valid)[None, None, :].expand(
+                p_stripes, q_chunk, kv_chunk)
             if causal:
-                valid = valid & (kpos[None, :] <= qpos[:, None])
+                valid = valid & (kpos[None, None, :] <= qpos[..., None])
             if window is not None:
-                valid = valid & (kpos[None, :] > qpos[:, None] - window)
-            scores = torch.where(valid[None, :, None, None, :], scores,
+                valid = valid & (kpos[None, None, :]
+                                 > qpos[..., None] - window)
+            scores = torch.where(valid[None, :, :, None, None, :], scores,
                                  NEG_INF)
             m_new = torch.maximum(m, torch.amax(scores, dim=-1))
             p = torch.exp(scores - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + torch.sum(p, dim=-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bqkgt,btkd->bqkgd", p, vc[:, kj])
+                "bpqkgt,btkd->bpqkgd", p, vc[:, kj])
             m = m_new
         outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
-    return torch.stack(outs, dim=1).reshape(b, s, h, vd)
+    # (B, P, nq, qc, Hkv, G, vd) -> (B, S, H, vd)
+    return torch.stack(outs, dim=2).reshape(b, s, h, vd)
 
 
 def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
@@ -175,6 +204,9 @@ def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
     q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
     k = _split_heads(L.dense(p["wk"], src), spec.num_kv_heads)
     v = _split_heads(L.dense(p["wv"], src), spec.num_kv_heads)
+    q = S.constrain(q, "batch", "seq", "heads", None)
+    k = S.constrain(k, "batch", "seq", "kv", None)
+    v = S.constrain(v, "batch", "seq", "kv", None)
     if spec.use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)

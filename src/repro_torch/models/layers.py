@@ -17,6 +17,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.models import sharding as S
 
 
 def device_of(generator: Optional[torch.Generator]):
@@ -82,8 +85,15 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of the embedding table (a gather; its gradient sums the rows'
-    gradients per token) in ``dtype``."""
-    return F.embedding(tokens, p["embedding"]).to(dtype)
+    gradients per token) in ``dtype``.  From a vocab-sharded DTensor
+    table each rank gathers the rows it holds, zeros elsewhere: a partial
+    sum that is summed here, before an op that would not carry its mask."""
+    out = F.embedding(tokens, p["embedding"])
+    if isinstance(out, DTensor) and any(pl.is_partial()
+                                        for pl in out.placements):
+        out = out.redistribute(placements=[
+            Replicate() if pl.is_partial() else pl for pl in out.placements])
+    return out.to(dtype)
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -158,4 +168,7 @@ def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         h = act_fn(dense(p["w_gate"], x)) * h
     else:
         h = act_fn(h)
-    return dense(p["w_out"], h)
+    # the Megatron layout: hidden over the tensor dim, output back to the
+    # residual layout
+    h = S.constrain(h, "batch", "seq", "mlp")
+    return S.constrain(dense(p["w_out"], h), "batch", "seq", "embed")

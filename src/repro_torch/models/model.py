@@ -31,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 
 PyTree = Any
 
@@ -118,6 +119,7 @@ def _stage_forward(cfg, stage, stage_params, x, memory, positions):
             x, a = B.apply_block(cfg, spec, layer[f"b{i}"], x, memory,
                                  positions)
             aux = aux + a
+        x = S.constrain(x, "batch", "seq", "embed")
     return x, aux
 
 
@@ -155,7 +157,8 @@ def hidden_states(cfg, params, tokens: torch.Tensor,
     auxiliary loss; tokens: (B, S) integers, ``memory`` the stub
     frontend's embeddings (a model without memory tokens ignores it)."""
     b, s = tokens.shape
-    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    x = S.constrain(L.embed(params["embed"], tokens, cfg.cdtype),
+                    "batch", "seq", "embed")
     positions = _positions(b, s, tokens.device)
     mem = _encode_memory(cfg, params, memory) if cfg.num_memory_tokens \
         else None
@@ -177,7 +180,7 @@ def forward(cfg, params, tokens: torch.Tensor,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (logits (B, S, V) float32, auxiliary loss)."""
     x, aux = hidden_states(cfg, params, tokens, memory)
-    return _unembed(cfg, params, x), aux
+    return S.constrain(_unembed(cfg, params, x), "batch", "seq", "vocab"), aux
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

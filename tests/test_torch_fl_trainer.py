@@ -12,6 +12,18 @@ arrivals [1, 1] and [1, 0]; both ranks must end with the same params.
 ``psum_aggregate`` at world 1 and 2 against ``aggregate`` on the stacked
 gradients, the all-dropped case included.  The parity steps take lr 5 so
 the update is not lost in the params' rounding.
+
+At world 4, the tensor dim: qwen2-7b's smoke width in float32 (qkv
+biases drawn N(0, 0.25), the init's are 0) through ``make_fl_train_step(tp_shard_params=True)`` on a
+("data" 2, "model" 2) mesh of four gloo ranks, against the reference's
+step on four host devices (its weights sharded over "model" by its
+``in_shardings``): params at 1e-5, ``loss`` and ``achieved_rho`` at 1e-6;
+every rank ending with the same params and the two ranks of each "model"
+coordinate with bitwise equal shards; two chained steps and a block-128
+step (its leaves' shards cut their tiles, so they are gathered for the
+ranking) against the same mesh's unsharded step (``tp_shard_params=
+False``), at 1e-5 with the same ``achieved_rho``.  ``fl_input_specs``
+against the reference's on a duck-typed 16 x 16 mesh.
 """
 
 import os
@@ -125,20 +137,6 @@ def test_fl_step_zero_rho_matches_unpruned_grad(setup):
     for a, b in zip(TPR.flatten(new), TPR.flatten(expect)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
                                    atol=1e-6)
-
-
-def test_tensor_dim_waits_for_sharding(setup):
-    """A "model" dim above 1 with tp_shard_params is refused, not
-    ignored (a (1, 1) mesh has none, so the check reads the shape)."""
-    _, tcfg, _, _, mesh, _ = setup
-
-    class Wide:
-        mesh_dim_names = ("data", "model")
-        shape = (1, 2)
-
-    with pytest.raises(NotImplementedError, match="Queue A, item 10"):
-        TFT.make_fl_train_step(tcfg, Wide(), ("data",))
-    TFT.make_fl_train_step(tcfg, mesh, ("data",), tp_shard_params=True)
 
 
 def test_mesh_builders_at_world_1(setup):
@@ -389,3 +387,234 @@ def test_psum_aggregate_world_2_matches_aggregate(world2, case):
             np.testing.assert_allclose(a, b.numpy(), rtol=1e-6, atol=0)
     if case == 2:
         assert all(not np.any(a) for a in out["rank0"]["psum"][case])
+
+
+# ---------------------------------------------------------------------------
+# World 4: the tensor dim, four gloo ranks against four host devices
+# ---------------------------------------------------------------------------
+
+_TP_RANK = r"""
+import pickle, sys
+import torch
+import torch.distributed as dist
+rank, world, store, inp, out = sys.argv[1:6]
+rank, world = int(rank), int(world)
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+from torch.distributed.tensor import DTensor
+from repro_torch import weights
+from repro_torch.configs import get_config
+from repro_torch.core import pruning
+from repro_torch.federated import trainer as FT
+from repro_torch.launch import mesh as MESH
+with open(inp, "rb") as f:
+    data = pickle.load(f)
+cfg = get_config("qwen2-7b").smoke_variant()
+params = weights.tree_from_numpy(data["params"], device="cpu")
+mesh = MESH.make_host_mesh(data=2, model=2, device="cpu")
+vec = lambda x: torch.tensor(x, dtype=torch.float32)
+tokens = {"tokens": torch.as_tensor(data["tokens"])}
+
+
+def whole(tree):
+    return [(a.full_tensor() if isinstance(a, DTensor) else a).numpy()
+            for a in pruning.flatten(tree)]
+
+
+def run(step, start, arrivals, steps=1):
+    p, ms = start, []
+    for _ in range(steps):
+        p, m = step(p, tokens, vec(data["rho"]), vec(arrivals),
+                    vec(data["k"]))
+        ms.append({"loss": float(m["loss"]),
+                   "achieved_rho": m["achieved_rho"].tolist()})
+    return p, ms
+
+
+res = {"coord": mesh.get_coordinate(), "cases": [], "chain": {},
+       "block128": {}}
+tp = FT.make_fl_train_step(cfg, mesh, ("data",), block=data["block"],
+                           lr=data["lr"], tp_shard_params=True)
+for arrivals in data["arrivals"]:
+    new, ms = run(tp, params, arrivals)
+    res["cases"].append({
+        "params": whole(new), "metrics": ms[0],
+        "local": [a.to_local().numpy() for a in pruning.flatten(new)],
+        "placements": [tuple(a.placements) for a in pruning.flatten(new)]})
+for sharded in (True, False):
+    step = FT.make_fl_train_step(cfg, mesh, ("data",), block=data["block"],
+                                 lr=data["chain_lr"],
+                                 tp_shard_params=sharded)
+    new, ms = run(step, params, [1.0, 1.0], steps=2)
+    res["chain"][sharded] = {"params": whole(new), "metrics": ms}
+    step = FT.make_fl_train_step(cfg, mesh, ("data",), block=128,
+                                 lr=data["chain_lr"],
+                                 tp_shard_params=sharded)
+    pruning.block_norm_state.gathers = 0
+    new, ms = run(step, params, [1.0, 1.0])
+    res["block128"][sharded] = {"params": whole(new), "metrics": ms,
+                                "gathers": pruning.block_norm_state.gathers}
+with open(out, "wb") as f:
+    pickle.dump(res, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+_TP_REFERENCE = """
+import os, pickle, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["JAX_PLATFORMS"] = "cpu"
+import jax
+import jax.numpy as jnp
+from repro.configs import get_config
+from repro.federated import trainer as FT
+from repro.launch import mesh as MESH
+inp, out = sys.argv[1:3]
+with open(inp, "rb") as f:
+    data = pickle.load(f)
+cfg = get_config("qwen2-7b").smoke_variant()
+mesh = MESH.make_host_mesh(model=2)
+assert dict(mesh.shape) == {"data": 2, "model": 2}
+step = FT.make_fl_train_step(cfg, mesh, ("data",), block=data["block"],
+                             lr=data["lr"], tp_shard_params=True)
+params = jax.tree.map(jnp.asarray, data["params"])
+res = []
+for arrivals in data["arrivals"]:
+    new, m = step(params, {"tokens": jnp.asarray(data["tokens"])},
+                  jnp.asarray(data["rho"], jnp.float32),
+                  jnp.asarray(arrivals, jnp.float32),
+                  jnp.asarray(data["k"], jnp.float32))
+    res.append({"params": [jax.device_get(a) for a in jax.tree.leaves(new)],
+                "loss": float(m["loss"]),
+                "achieved_rho": [float(x) for x in m["achieved_rho"]]})
+with open(out, "wb") as f:
+    pickle.dump(res, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    """One run of each side on qwen2-7b's smoke width: the port's four
+    ranks and the reference's four devices, started together."""
+    tmp = tmp_path_factory.mktemp("world4")
+    jcfg = j_get_config("qwen2-7b").smoke_variant()
+    npp = jax.tree.map(np.asarray, JM.init_params(jcfg,
+                                                  jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(9)
+    for name in ("wq", "wk", "wv"):   # the init leaves the qkv biases 0
+        attn = npp["stages"][0]["b0"]["attn"][name]
+        attn["b"] = (0.5 * rng.normal(size=attn["b"].shape)).astype(
+            np.float32)
+    data = {"params": npp, "tokens": _tokens(2, 8, jcfg.vocab_size),
+            "rho": RHO2, "k": K2, "arrivals": ARRIVALS2, "block": BLOCK,
+            "lr": PARITY_LR, "chain_lr": 0.5}
+    inp = tmp / "in.pkl"
+    with open(inp, "wb") as f:
+        pickle.dump(data, f)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env.pop("XLA_FLAGS", None)
+    procs = [_start(_TP_REFERENCE, [inp, tmp / "ref.pkl"], env)] + [
+        _start(_TP_RANK, [r, 4, tmp / "store", inp, tmp / f"rank{r}.pkl"],
+               env) for r in range(4)]
+    for rc, err in _wait_all(procs):
+        assert rc == 0, err[-3000:]
+    out = {}
+    for name in ("ref", "rank0", "rank1", "rank2", "rank3"):
+        with open(tmp / f"{name}.pkl", "rb") as f:
+            out[name] = pickle.load(f)
+    return data, out
+
+
+def _worst_rel(got, want) -> float:
+    return max(float(np.max(np.abs(a - b))) / float(np.max(np.abs(b)))
+               for a, b in zip(got, want))
+
+
+def test_tensor_dim_runs_and_matches_unsharded(world4):
+    """The tensor dim runs: the step's params come back as DTensors
+    sharded over "model" (replicated over the client dim), and two
+    chained sharded steps equal the unsharded step on the same mesh at
+    1e-5, ``achieved_rho`` equal."""
+    _, out = world4
+    for r in range(4):
+        got = out[f"rank{r}"]
+        sharded = [p for p in got["cases"][0]["placements"]
+                   if any(pl.is_shard() for pl in p)]
+        assert sharded and all(p[0].is_replicate() for p in sharded)
+        tp, rep = got["chain"][True], got["chain"][False]
+        for a, b in zip(tp["metrics"], rep["metrics"]):
+            assert a["achieved_rho"] == b["achieved_rho"]
+            assert a["loss"] == pytest.approx(b["loss"], rel=1e-6)
+        assert _worst_rel(tp["params"], rep["params"]) <= RTOL
+
+
+@pytest.mark.parametrize("case", range(len(ARRIVALS2)))
+def test_world4_matches_reference(world4, case):
+    """rho [0.3, 0.5], k [40, 30], arrivals [1, 1] and [1, 0], lr 5:
+    params at 1e-5, loss and ``achieved_rho`` at 1e-6."""
+    data, out = world4
+    want = out["ref"][case]
+    got = out["rank0"]["cases"][case]
+    assert got["metrics"]["achieved_rho"] == pytest.approx(
+        want["achieved_rho"], abs=1e-6)
+    assert got["metrics"]["loss"] == pytest.approx(want["loss"], rel=1e-6)
+    assert _worst_rel(got["params"], want["params"]) <= RTOL
+    before = jax.tree_util.tree_leaves(data["params"])
+    assert any(not np.array_equal(a, b) for a, b in zip(got["params"],
+                                                        before))
+
+
+def test_world4_ranks_agree(world4):
+    """Every rank ends with the same params and metrics; the two ranks of
+    each "model" coordinate (one a client) hold bitwise equal shards."""
+    _, out = world4
+    ranks = [out[f"rank{r}"] for r in range(4)]
+    by_model = {}
+    for r in ranks:
+        by_model.setdefault(r["coord"][1], []).append(r)
+    assert sorted(len(v) for v in by_model.values()) == [2, 2]
+    for case in range(len(ARRIVALS2)):
+        for r in ranks[1:]:
+            assert r["cases"][case]["metrics"] ==                 ranks[0]["cases"][case]["metrics"]
+            for a, b in zip(r["cases"][case]["params"],
+                            ranks[0]["cases"][case]["params"]):
+                np.testing.assert_array_equal(a, b)
+        for pair in by_model.values():
+            for a, b in zip(pair[0]["cases"][case]["local"],
+                            pair[1]["cases"][case]["local"]):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_world4_block128_gathers_and_matches(world4):
+    """Block 128 at the smoke width: the sharded step gathers the leaves
+    whose shards cut their tiles (the unsharded one gathers none) and
+    equals the unsharded step at 1e-5, ``achieved_rho`` equal."""
+    _, out = world4
+    for r in range(4):
+        tp, rep = (out[f"rank{r}"]["block128"][k] for k in (True, False))
+        assert tp["gathers"] > 0 and rep["gathers"] == 0
+        assert tp["metrics"][0]["achieved_rho"] ==             rep["metrics"][0]["achieved_rho"]
+        assert _worst_rel(tp["params"], rep["params"]) <= RTOL
+
+
+def test_fl_input_specs_match_reference(monkeypatch):
+    """Tokens and the per-client vectors on ``meta``, every spec over the
+    client dims, as the reference's on a 16 x 16 and a 2 x 16 x 16 mesh."""
+    class FakeMesh:
+        def __init__(self, **axes):
+            self.shape = dict(axes)
+            self.axis_names = tuple(axes)
+
+    monkeypatch.setattr(JFT, "NamedSharding", lambda mesh, spec: spec)
+    jcfg = j_get_config("qwen2-7b")
+    tcfg = t_get_config("qwen2-7b")
+    for mesh, caxes in ((FakeMesh(data=16, model=16), ("data",)),
+                        (FakeMesh(pod=2, data=16, model=16),
+                         ("pod", "data"))):
+        jb, jv, js = JFT.fl_input_specs(jcfg, mesh, caxes, 8, 128)
+        tb, tv, ts = TFT.fl_input_specs(tcfg, mesh, caxes, 8, 128)
+        assert tuple(tb["tokens"].shape) == jb["tokens"].shape
+        assert tb["tokens"].dtype == torch.int32
+        assert tuple(tv.shape) == jv.shape and tv.device.type == "meta"
+        assert ts[0] == {"tokens": tuple(js[0]["tokens"])}
+        assert list(ts[1:]) == [tuple(x) for x in js[1:]]
