@@ -238,6 +238,27 @@ Phases (any failure exits non-zero and prints no result line):
                with fewer cards one line says so.  ``python3
                chip_smoke.py --phase19b`` runs phases 1, 2 (the tile-norm
                kernel alone) and 19b.
+ 20. the fleet engine on a ("cells" 2, "data" 2) mesh (``make_fleet_mesh``,
+               ``run_fleet(mesh=...)``) — each rank runs each path meshless
+               on its card, then on the mesh, 3 rounds (control, apply and
+               the all-reduce timed, launches counted), then again: (a)
+               four ranks sharing the card over gloo (four processes with
+               a timeout; first a probe of gloo's all-reduce and
+               all-gather of CUDA tensors) at the slice: the sync fused
+               round and the uniform cohort (10 of 100 a cell,
+               control_chunk 25): every control bitwise the meshless
+               run's, losses and params within TOL of it, params bitwise
+               equal on every rank, a rerun bitwise, one fused and one
+               tile-norm launch a round a rank, one all-reduce and one
+               all-gather a round a rank; (b) with four cards,
+               ``torchrun`` (NCCL, a card a rank): a million clients
+               (1,000 x 1,000, streamed, cell_chunk 100), full
+               participation and the cohort (100 a cell, control_chunk
+               250), the same gates (3 fused launches a round a rank),
+               peak memory a card and a profiled round's busy share; with
+               fewer cards one line says so.  ``--phase20a`` runs phases
+               1, 2 (the two fleet kernels) and 20a, ``--phase20b`` 1, 2
+               and 20b.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
@@ -256,7 +277,8 @@ and ``fl_two_rank_launches``, phase 18a's ``--fl`` run's, 18c's and 18d's
 two ranks', and ``fl_block16_*``, the tile norms on 18c's ranking; row 2
 ``tp_shard_launches``, phase 19a's four ranks' over both blocks, and
 ``tp_shard_*``, the tile norms on rank (0, 0)'s local shards at block
-16); the last is the device JSON.
+16; the fleet rows ``fleet_mesh_launches``, phase 20a's four ranks'
+over both paths); the last is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -4571,13 +4593,394 @@ def run_tp_full(card: str) -> None:
         raise AssertionError("19b: the kernel on local shards disagrees")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the fleet engine on a ("cells", "data") mesh
+# ---------------------------------------------------------------------------
+
+MESH_ROUNDS = 3
+MESH_TIMEOUT, MESH_FULL_TIMEOUT = 240, 900
+# 20b: a million clients (1,000 cells x 1,000), streamed, cell_chunk 100
+# (100,000 clients a fused call), the cohort 100 a cell in control blocks
+# of 250 cells
+MESH_FULL_CELLS, MESH_FULL_PER_CELL, MESH_FULL_CHUNK = 1000, 1000, 100
+MESH_FULL_M, MESH_FULL_CONTROL_CHUNK = 100, 250
+CONTROL_FIELDS = ("mask", "strag", "arrivals", "t_client", "m_round",
+                  "cohort")
+
+
+def mesh_paths(full: bool) -> dict:
+    """Phase 20's two paths: full participation (the sync fused round) and
+    the uniform cohort; 20a at the slice, 20b at a million clients."""
+    import dataclasses
+    from repro_torch.fleet import ScheduleConfig
+    if full:
+        base = dataclasses.replace(
+            slice_config(MESH_ROUNDS, MESH_FULL_CELLS, MESH_FULL_PER_CELL),
+            cache_data=False, cell_chunk=MESH_FULL_CHUNK)
+        m, chunk = MESH_FULL_M, MESH_FULL_CONTROL_CHUNK
+    else:
+        base, m, chunk = slice_config(MESH_ROUNDS), COHORT_M, COHORT_CHUNK
+    return {"full": base, "cohort": dataclasses.replace(
+        base, control_chunk=chunk, schedule=ScheduleConfig(
+            participation="uniform", participants_per_cell=m))}
+
+
+def controls_equal(a, b) -> list:
+    """The fields of two ``RoundControl``s (the solution's included) whose
+    bits or dtypes differ."""
+    import torch
+    pairs = [(f, getattr(a, f), getattr(b, f)) for f in CONTROL_FIELDS]
+    pairs += [(f"sol.{f}", x, y) for f, x, y in zip(
+        a.sol._fields, a.sol, b.sol)]
+    return [f for f, x, y in pairs
+            if (x is None) != (y is None) or x is not None and not (
+                x.dtype == y.dtype and torch.equal(x, y))]
+
+
+def params_digest(params) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for name, layer in sorted(params.items()):
+        for leaf, v in sorted(layer.items()):
+            h.update(f"{name}/{leaf}".encode())
+            h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def result_rel(a, b) -> tuple[float, float]:
+    """(losses, params): max |a - b| over max |b|, of two FleetResults."""
+    import numpy as np
+
+    def rel(x, y):
+        return float(np.max(np.abs(x - y))) / max(float(np.max(np.abs(y))),
+                                                 1e-30)
+    params = max(rel(a.params[n][k], b.params[n][k])
+                 for n in b.params for k in b.params[n])
+    return rel(a.losses, b.losses), params
+
+
+def profile_mesh_round(sim, carry, r: int) -> dict:
+    """One warm round on every rank, this rank's under torch.profiler: its
+    wall, device busy ms (and its NCCL kernels' part, which includes the
+    wait for the other ranks), device ops and the five longest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step(carry, r)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ANNOTATIONS and not e.key.startswith("nccl:")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall, "busy_ms": busy,
+            "nccl_ms": sum(e.self_device_time_total for e in kernels
+                           if "nccl" in e.key.lower()) / 1e3,
+            "device_ops": sum(e.count for e in kernels),
+            "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                    for e in sorted(kernels, key=lambda e:
+                                    -e.self_device_time_total)[:5]]}
+
+
+def fleet_mesh_rank(out: str, spec: dict) -> int:
+    """Phase 20, one rank: each of ``mesh_paths(spec["full"])`` run
+    meshless on this rank's card, then on the ("cells" 2, "data" 2) mesh
+    of ``make_fleet_mesh()``, round by round (control, apply and the
+    all-reduce timed, launches counted, each control held bitwise against
+    the meshless one), then again (rerun).  20a: four ranks sharing the
+    card over gloo (``spec["store"]``, a FileStore); 20b: ``torchrun``'s
+    ranks over NCCL, a card each.  Rank 0 writes every rank's figures to
+    ``out`` (JSON)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.fleet import build_simulation
+    from repro_torch.launch import mesh as MESH
+    probe = None
+    if spec.get("store"):
+        dist.init_process_group("gloo", store=dist.FileStore(
+            spec["store"], 4), rank=spec["rank"], world_size=4)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        # gloo's all-reduce and all-gather of CUDA tensors, which the
+        # engine's mesh path issues as they are (no staging on the host)
+        rank = dist.get_rank()
+        x = torch.full((3,), float(rank + 1), device=dev)
+        parts = [torch.empty_like(x) for _ in range(4)]
+        dist.all_gather(parts, x)
+        dist.all_reduce(x)
+        probe = [float(x[0])] + [float(p[0]) for p in parts]
+        if probe != [10.0, 1.0, 2.0, 3.0, 4.0]:
+            raise AssertionError(f"gloo on CUDA tensors gave {probe}")
+    else:
+        dev = MESH.local_device()
+    mesh = MESH.make_fleet_mesh(device=dev)
+    rank = dist.get_rank()
+    calls = {"all_reduce": [0, 0.0], "all_gather": [0, 0.0]}
+    for name in calls:
+        def timed(*a, _f=getattr(dist, name), _n=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_ = _f(*a, **kw)
+            torch.cuda.synchronize()
+            calls[_n][0] += 1
+            calls[_n][1] += (time.perf_counter() - t0) * 1e3
+            return out_
+        setattr(dist, name, timed)
+
+    def drive_rounds(sim):
+        """Every round of ``sim``: (carry, FleetResult, its controls, walls
+        [control, apply, all-reduce] ms and launches a round)."""
+        zero_fleet_counts()
+        carry = sim.init_carry(sim.params)
+        history, walls, steps, ctls = [], [], [], []
+        for r in range(sim.cfg.rounds):
+            before, ar = fleet_counts(), calls["all_reduce"][1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctls.append(sim.control(r))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            carry, m = sim.apply(carry, ctls[-1])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            after = fleet_counts()
+            steps.append({k: after[k] - before[k] for k in after})
+            walls.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                          calls["all_reduce"][1] - ar])
+            history.append(m)
+        result = sim.finalize(carry, {k: torch.stack([h[k] for h in history])
+                                      for k in history[0]})
+        return carry, result, ctls, walls, steps
+
+    res = {"rank": rank, "coord": list(mesh.get_coordinate()),
+           "shape": list(mesh.shape), "probe": probe, "paths": {}}
+    for name, cfg in mesh_paths(spec["full"]).items():
+        _, ref_out, ref_ctls, ref_walls, _ = drive_rounds(
+            build_simulation(cfg, device=dev))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim = build_simulation(cfg, mesh=mesh, device=dev)
+        carry, got, ctls, walls, steps = drive_rounds(sim)
+        differ = [controls_equal(a, b) for a, b in zip(ctls, ref_ctls)]
+        del ctls, ref_ctls
+        counts = {k: v[0] for k, v in calls.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        prof = profile_mesh_round(sim, carry, cfg.rounds - 1) \
+            if spec["full"] else None
+        del sim, carry
+        again = build_simulation(cfg, mesh=mesh, device=dev)
+        rerun = again.finalize(*again.simulate(again.params))
+        del again
+        torch.cuda.empty_cache()
+        loss_rel, param_rel = result_rel(got, ref_out)
+        res["paths"][name] = {
+            "clients": cfg.topology.num_clients, "launches": steps,
+            "walls_ms": walls, "meshless_walls_ms": ref_walls,
+            "collectives": counts, "differ": differ,
+            "losses": got.losses.tolist(),
+            "meshless_losses": ref_out.losses.tolist(),
+            "loss_rel": loss_rel, "param_rel": param_rel,
+            "digest": params_digest(got.params),
+            "rerun_bitwise": bool(np.array_equal(rerun.losses, got.losses)
+                                  and params_digest(rerun.params)
+                                  == params_digest(got.params)),
+            "peak_gib": peak, "profile": prof}
+        for v in calls.values():
+            v[:] = [0, 0.0]
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, res)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(ranks, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def check_mesh_ranks(ranks: list, full: bool, card: str, what: str) -> dict:
+    """Phase 20's gates on every rank's figures, and rank 0's rounds;
+    returns the launches of the meshed runs, summed over ranks and
+    paths."""
+    import numpy as np
+    paths = mesh_paths(full)
+    if sorted(tuple(r["coord"]) for r in ranks) != [(0, 0), (0, 1), (1, 0),
+                                                     (1, 1)]:
+        raise AssertionError(f"{what}: mesh coordinates "
+                             f"{[r['coord'] for r in ranks]}")
+    total = dict.fromkeys(("fleet_fused_grads", "tile_norms"), 0)
+    for name, cfg in paths.items():
+        got = [r["paths"][name] for r in ranks]
+        r0 = got[0]
+        m = cfg.schedule.participants_per_cell \
+            if name == "cohort" else cfg.topology.clients_per_cell
+        step = (cfg.cell_chunk if 0 < cfg.cell_chunk < cfg.topology.num_cells
+                else cfg.topology.num_cells) * m
+        per_rank = -(-cfg.topology.num_cells * m // 4)
+        fused = -(-per_rank // step)
+        want = {"fleet_fused_grads": fused, "tile_norms": 1}
+        for r, g in zip(ranks, got):
+            log(f"  {what} {name}, rank {r['rank']} {tuple(r['coord'])}: "
+                f"losses {g['losses']}")
+        for rnd, (wall, alone, launches) in enumerate(zip(
+                r0["walls_ms"], r0["meshless_walls_ms"], r0["launches"])):
+            log(f"  {what} {name} round {rnd} (rank 0): "
+                f"wall {sum(wall[:2]):.2f} ms (control {wall[0]:.2f}, "
+                f"apply {wall[1]:.2f}, of it the all-reduce {wall[2]:.2f}) "
+                f"launches {json.dumps(launches)}; meshless on the card "
+                f"{sum(alone[:2]):.2f} ms (control {alone[0]:.2f}, apply "
+                f"{alone[1]:.2f}) [{card}]")
+        log(f"  {what} {name}: {got[0]['clients']:,} clients; against the "
+            f"meshless run on the card: controls bitwise "
+            f"{[not any(d) for g in got for d in g['differ']]}, losses rel "
+            f"{max(g['loss_rel'] for g in got):.3e}, params rel "
+            f"{max(g['param_rel'] for g in got):.3e} (tol {TOL}); params "
+            f"bitwise equal across ranks "
+            f"{len({g['digest'] for g in got}) == 1}; rerun bitwise "
+            f"{[g['rerun_bitwise'] for g in got]}; collectives a rank "
+            f"{r0['collectives']}; peak "
+            f"{[round(g['peak_gib'], 2) for g in got]} GiB [{card}]")
+        bad = [(r["rank"], d) for r, g in zip(ranks, got)
+               for d in g["differ"] if d]
+        if bad:
+            raise AssertionError(f"{what} {name}: controls differ from the "
+                                 f"meshless run's: {bad}")
+        if max(max(g["loss_rel"], g["param_rel"]) for g in got) > TOL:
+            raise AssertionError(f"{what} {name}: the mesh run is not "
+                                 f"within {TOL} of the meshless run")
+        if len({g["digest"] for g in got}) != 1 or \
+                any(g["losses"] != r0["losses"] for g in got):
+            raise AssertionError(f"{what} {name}: the ranks' params differ")
+        if not all(g["rerun_bitwise"] for g in got):
+            raise AssertionError(f"{what} {name}: a rerun differs")
+        if any(s != want for g in got for s in g["launches"]):
+            raise AssertionError(
+                f"{what} {name}: launches "
+                f"{[g['launches'] for g in got]}, want {want} a round a rank")
+        rounds = cfg.rounds
+        if any(g["collectives"] != {"all_reduce": rounds,
+                                    "all_gather": rounds} for g in got):
+            raise AssertionError(f"{what} {name}: collectives "
+                                 f"{[g['collectives'] for g in got]}, want "
+                                 f"one all-reduce and one all-gather a round")
+        for g in got:
+            for s in g["launches"]:
+                for k in total:
+                    total[k] += s[k]
+        prof = r0["profile"]
+        if prof is not None:
+            if prof["busy_ms"] > 0:
+                log(f"  {what} {name} profiled warm round (rank 0): wall "
+                    f"{prof['wall_ms']:.2f} ms, device busy "
+                    f"{prof['busy_ms']:.3f} ms "
+                    f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%; NCCL "
+                    f"{prof['nccl_ms']:.3f} ms, with its wait for the other "
+                    f"ranks), {prof['device_ops']} device ops [{card}]")
+                for kname, ms, count in prof["top"]:
+                    log(f"    {ms:8.3f} ms  x{count:<5d} {kname}")
+            else:
+                log(f"  {what} {name} profiled warm round (rank 0): wall "
+                    f"{prof['wall_ms']:.2f} ms, device time not measured "
+                    f"(no CUDA events)")
+    return total
+
+
+def run_fleet_mesh_smoke(card: str) -> dict:
+    """20a: four ranks sharing the card over gloo (four processes, a
+    FileStore, each with a timeout), ``fleet_mesh_rank`` at the slice on
+    (2, 2): the sync fused round and the uniform cohort (10 of 100 a
+    cell, ``control_chunk`` 25), 3 rounds each; gates in
+    ``check_mesh_ranks``."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fleet-mesh-rank",
+             f"{tmp}/mesh.json", json.dumps(
+                 {"full": False, "store": f"{tmp}/store", "rank": r})],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(4)]
+        try:
+            outs = [p.communicate(timeout=MESH_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"20a rank {r} exited {p.returncode}:"
+                                     f"\n{text[-3000:]}")
+        wall = time.perf_counter() - t0
+        with open(f"{tmp}/mesh.json") as f:
+            ranks = json.load(f)
+    log(f"  gloo on CUDA tensors: all-gather and all-reduce as they are "
+        f"(rank 0's probe {ranks[0]['probe']})")
+    total = check_mesh_ranks(ranks, False, card, "20a")
+    log(f"  four ranks over gloo ({wall:.1f} s with start-up); launches "
+        f"{json.dumps(total)} [{card}]")
+    return total
+
+
+def run_fleet_mesh_full(card: str) -> None:
+    """20b: with four cards, ``fleet_mesh_rank`` under ``torchrun`` (one
+    rank a card, NCCL, a process group of its own, killed whole at its
+    timeout) at a million clients (1,000 x 1,000, streamed, cell_chunk
+    100): full participation and the uniform cohort (100 a cell,
+    ``control_chunk`` 250), 3 rounds each, each rank's meshless run on
+    its own card the comparison; ms a round (control, apply, all-reduce),
+    peak memory a card, a profiled round's busy share.  With fewer
+    cards, one line says so."""
+    import os
+    import signal
+    import tempfile
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"  20b (a million clients on a (2, 2) mesh over four cards) "
+            f"needs four cards; this machine has {cards}")
+        return
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "4", str(ROOT / "chip_smoke.py"),
+             "--fleet-mesh-rank", f"{tmp}/mesh.json",
+             json.dumps({"full": True})], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            text = proc.communicate(timeout=MESH_FULL_TIMEOUT)[0]
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"20b exited {proc.returncode}:\n"
+                                 f"{text[-4000:]}")
+        wall = time.perf_counter() - t0
+        with open(f"{tmp}/mesh.json") as f:
+            ranks = json.load(f)
+    total = check_mesh_ranks(ranks, True, card, "20b")
+    log(f"  four cards over NCCL ({wall:.1f} s with start-up); launches "
+        f"{json.dumps(total)} [{card}]")
+
+
 def main(argv: list) -> int:
     """No arguments: every phase, on one card.  ``--phase19b``: the
     device line, the tile-norm kernel's build and phase 19b alone (the
-    four-card run)."""
+    four-card run); ``--phase20b`` likewise with both fleet kernels and
+    phase 20b, and ``--phase20a`` with phase 20a (one card)."""
     import torch
-    only_19b = argv == ["--phase19b"]
-    if argv and not only_19b:
+    only = argv[0] if argv in (["--phase19b"], ["--phase20a"],
+                               ["--phase20b"]) else None
+    if argv and only is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4603,7 +5006,8 @@ def main(argv: list) -> int:
     phase("[2] build")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    names = ("block_norms",) if only_19b else build.SOURCES
+    names = {"--phase19b": ("block_norms",), None: build.SOURCES}.get(
+        only, ("block_norms", "fleet_fused"))
     reports = build.build(names)
     for name in names:
         build.load(name)
@@ -4613,9 +5017,19 @@ def main(argv: list) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    if only_19b:
+    if only == "--phase19b":
         phase("[19b] qwen2-7b at full width over four cards")
         run_tp_full(card)
+        return 0
+    if only == "--phase20a":
+        phase("[20a] the fleet engine on a (2, 2) mesh, four ranks sharing "
+              "the card")
+        run_fleet_mesh_smoke(card)
+        return 0
+    if only == "--phase20b":
+        phase("[20b] the fleet engine on a (2, 2) mesh over four cards, a "
+              "million clients")
+        run_fleet_mesh_full(card)
         return 0
 
     phase("[3] kernels against their plain versions")
@@ -4723,6 +5137,14 @@ def main(argv: list) -> int:
                     if k != "max_abs_err"})
     phase("  [19b] qwen2-7b at full width over four cards")
     run_tp_full(card)
+
+    phase("[20] the fleet engine on a (cells, data) mesh")
+    phase("  [20a] four ranks sharing the card, the slice")
+    mesh_launches = run_fleet_mesh_smoke(card)
+    for row in rows:
+        row["fleet_mesh_launches"] = mesh_launches[row["name"]]
+    phase("  [20b] a million clients over four cards")
+    run_fleet_mesh_full(card)
     rows += serve_rows
 
     phase("[end]")
@@ -4736,6 +5158,8 @@ def main(argv: list) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--fleet-mesh-rank"]:
+        sys.exit(fleet_mesh_rank(sys.argv[2], json.loads(sys.argv[3])))
     try:
         sys.exit(main(sys.argv[1:]))
     except Exception:  # any failed phase: report and exit non-zero

@@ -8,8 +8,10 @@ NVIDIA card.
 package to run; an earlier commit's tree unpacked under ``_archive/``
 gives its ``src``.  The script prints, on one line each: chip_smoke's
 phase 4 (5 synchronous rounds, 100 x 100 clients, the 784-60-20-10 DNN,
-``kernel="fused"``, seed 0) as its losses' float32 values in hex, and
-phase 6's serving tokens (smollm-135m at full width from seed 2026,
+``kernel="fused"``, seed 0), phase 7's cohort (10 of 100 a cell,
+uniform, ``control_chunk`` 25) and phase 8's async events (buffer
+2,500, max_staleness 20, 10 events) as their losses' float32 values in
+hex and the final params' sha256, and phase 6's serving tokens (smollm-135m at full width from seed 2026,
 bfloat16, pruned at rho = 0.5, 64 prompts of 32 tokens from
 ``RandomState(2026)``, 32 new tokens each on 32 slots of 128) as their
 count and sha256.  Two trees agree bit for bit where both lines do.
@@ -19,6 +21,7 @@ The card's name and power limit come first.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import subprocess
 import sys
@@ -38,8 +41,9 @@ def main() -> int:
         print("path_digest: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.fleet import (FleetConfig, FleetTopology,
-                                   SyntheticMLPTask, build_simulation)
+    from repro_torch.fleet import (AsyncConfig, FleetConfig, FleetTopology,
+                                   ScheduleConfig, SyntheticMLPTask,
+                                   build_simulation)
     from repro_torch.fleet.task import TransformerTask
     from repro_torch.serve import (ServeConfig, ServeEngine, SparseModel,
                                    make_bundle)
@@ -53,10 +57,25 @@ def main() -> int:
         feature_dim=784, hidden=(60, 20), num_classes=10, local_batch=8,
         prune_block=8), topology=FleetTopology(100, 100), kernel="fused",
         rounds=5)
-    sim = build_simulation(cfg)
-    _, metrics = sim.simulate(sim.params)
-    losses = metrics["loss"].cpu().numpy().astype(np.float32)
-    print("phase 4 losses " + " ".join(float(v).hex() for v in losses))
+    paths = (
+        ("phase 4", "sync", cfg),
+        ("phase 7", "sync", dataclasses.replace(
+            cfg, control_chunk=25, schedule=ScheduleConfig(
+                participation="uniform", participants_per_cell=10))),
+        ("phase 8", "async", dataclasses.replace(
+            cfg, rounds=10, async_config=AsyncConfig(
+                buffer_size=2500, max_staleness=20))))
+    for name, mode, path_cfg in paths:
+        sim = build_simulation(path_cfg, mode)
+        result = sim.finalize(*sim.simulate(sim.params))
+        digest = hashlib.sha256()
+        for layer, leaves in sorted(result.params.items()):
+            for leaf, v in sorted(leaves.items()):
+                digest.update(np.ascontiguousarray(v).tobytes())
+        print(f"{name} losses "
+              + " ".join(float(v).hex() for v in
+                         result.losses.astype(np.float32))
+              + f" params sha256 {digest.hexdigest()}")
 
     arch = get_config("smollm-135m")
     task = TransformerTask(arch=arch)

@@ -418,14 +418,16 @@ def run_fleet_reference(fcfg: FE.FleetConfig, progress: bool = False,
 
 
 def run_any(cfg: FLConfig, progress: bool = False, fleet_threshold: int = 64,
-            num_cells: int = 1, *, device=None,
+            num_cells: int = 1, mesh=None, *, device=None,
             dtype: torch.dtype = torch.float32):
     """Small populations (``num_clients <= fleet_threshold``) and every
     scheme but "proposed" take ``run`` (an ``FLResult``), or, with
     ``cfg.task`` and "proposed", ``run_fleet_reference`` (a
     ``FleetResult``); larger "proposed" runs take the fleet engine
     (``fleet.run_fleet`` on ``to_fleet_config(cfg, num_cells)``, a
-    ``FleetResult``).  The return type switches with the path."""
+    ``FleetResult``), on ``mesh`` where one is given (the host paths
+    ignore it, as the reference's do).  The return type switches with
+    the path."""
     if cfg.num_clients <= fleet_threshold or cfg.scheme != "proposed":
         if cfg.task is not None and cfg.scheme == "proposed":
             return run_fleet_reference(
@@ -433,4 +435,5 @@ def run_any(cfg: FLConfig, progress: bool = False, fleet_threshold: int = 64,
                 device=device, dtype=dtype)
         return run(cfg, progress=progress, device=device, dtype=dtype)
     return FE.run_fleet(to_fleet_config(cfg, num_cells=num_cells),
-                        progress=progress, device=device, dtype=dtype)
+                        progress=progress, mesh=mesh, device=device,
+                        dtype=dtype)

@@ -82,6 +82,28 @@ and finalize spans.  The round's phases are ``record_function`` scopes
 (``fleet.channel``, ``fleet.solve``, ``fleet.gradient``, ``fleet.merge``,
 ``fleet.eval``, ``fleet.cloud_merge``) whether telemetry is on or not.
 
+A mesh (``build_simulation(mesh=...)``, a ``DeviceMesh`` from
+``launch.mesh``; each rank runs on its own device, ``launch.mesh.
+local_device``) splits a round over the ranks with explicit slices and
+``torch.distributed`` collectives, the counterpart of the reference's
+shardings.  Every rank holds the draws and the population whole (the same
+seeds draw the same fleet).  The interference-free solve splits its cells
+into contiguous blocks over the cell dim ("cells" on a fleet mesh, else
+"data", as the reference's ``_shard_cells``), and one all-gather a control
+pass gives every rank the whole ``RoundControl``, bitwise the meshless one
+(the cells are independent); under interference, or with a ``solve_fn``,
+every rank solves the whole fleet.  The gradient pass splits the flat
+clients (or the flat cohort, or an async buffer) into contiguous slices
+over all the mesh's ranks in row-major order; each rank ranks the model
+once and runs its slice ``cell_chunk`` cells at a time, and Eq. (5)'s sums
+(gradients, weights, losses) are one all-reduce a round or event.  The
+step, the metrics and eval then run on identical inputs, so every rank
+holds bitwise equal params and the same ``FleetResult``; only the order
+of Eq. (5)'s sum differs from a meshless run.  Two-tier rounds and the
+async two-tier buffer run whole on every rank, as the reference's serial
+scan over cells does (it warns; so does the port).  With a cache, a sync
+single-tier rank draws only the cells its slices reach.
+
 Precision: ``dtype`` (default float32) plays the part of the reference's
 global x64 flag.  On the card the kernels take float32 only, and
 ``device.resolve_device`` turns TF32 off for matrix products and cuDNN so
@@ -91,12 +113,15 @@ float32 means float32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
+import warnings
 from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import aggregation as AGG
 from repro_torch.core import closed_form as CF
@@ -109,6 +134,7 @@ from repro_torch.fleet import task as TASK
 from repro_torch.fleet import telemetry as TEL
 from repro_torch.fleet import topology as TOPO
 from repro_torch.kernels import fleet_fused as FUSED
+from repro_torch.launch.mesh import local_device
 
 PyTree = Any
 
@@ -435,6 +461,79 @@ def _check_on_device(what: str, tree, dev: torch.device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Meshes: how the ranks split a round
+# ---------------------------------------------------------------------------
+
+class Split(NamedTuple):
+    """Work split over ``size`` ranks: this rank's ``index`` among them
+    and the process ``group`` over them (None: the default group)."""
+
+    index: int
+    size: int
+    group: Any
+
+
+def _cell_split(mesh) -> Optional[Split]:
+    """The split of the cells: over "cells" on a fleet mesh, else over
+    "data" (the reference's ``_shard_cells``); None without a mesh or
+    either dim."""
+    if mesh is None:
+        return None
+    names = mesh.mesh_dim_names or ()
+    axis = "cells" if "cells" in names else "data"
+    if axis not in names:
+        return None
+    group = mesh.get_group(axis)
+    return Split(dist.get_rank(group), dist.get_world_size(group), group)
+
+
+def _world_split(mesh) -> Optional[Split]:
+    """The split over every rank of ``mesh``, which must span the default
+    group (``launch.mesh``'s builders' meshes do), in row-major order."""
+    if mesh is None:
+        return None
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a fleet mesh must span the default group's "
+                         f"{dist.get_world_size()} ranks, not {mesh.size()}")
+    return Split(dist.get_rank(), mesh.size(), None)
+
+
+def _block(n: int, split: Optional[Split]) -> tuple[int, int]:
+    """This rank's contiguous block of ``n`` items: blocks of ceil(n /
+    size), the last ragged (or empty); (0, n) without a split."""
+    if split is None:
+        return 0, n
+    b = -(-n // split.size)
+    return min(split.index * b, n), min((split.index + 1) * b, n)
+
+
+def _all_gather_blocks(part: torch.Tensor, n: int,
+                       split: Split) -> torch.Tensor:
+    """The (n, ...) whole of every rank's ``_block`` rows ``part``, by one
+    all-gather of blocks padded to ceil(n / size) rows."""
+    b = -(-n // split.size)
+    buf = part.new_zeros((b,) + tuple(part.shape[1:]))
+    buf[:part.shape[0]] = part
+    parts = [torch.empty_like(buf) for _ in range(split.size)]
+    dist.all_gather(parts, buf, group=split.group)
+    return torch.cat(parts)[:n]
+
+
+def _all_reduce_sum(tensors: list, split: Split) -> list:
+    """Each tensor summed over the split's ranks by one all-reduce of one
+    flat buffer in their promoted dtype; each comes back in its own shape
+    and dtype, which must be the same on every rank."""
+    dtype = functools.reduce(torch.promote_types, [t.dtype for t in tensors])
+    buf = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
+    dist.all_reduce(buf, group=split.group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(buf[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Client data
 # ---------------------------------------------------------------------------
 
@@ -444,25 +543,29 @@ _DRAW_BLOCK = 8192     # clients a cache fill draws at a time
 
 class ClientData:
     """Every client's fixed local batch, cached on the device (``cached``,
-    leading dim = clients) or drawn again at each use from the task's
-    per-client function (``cached is None``: streaming).  Either way a
-    client's batch has the same bits."""
+    leading dim = clients from ``first`` on) or drawn again at each use
+    from the task's per-client function (``cached is None``: streaming).
+    Either way a client's batch has the same bits."""
 
     def __init__(self, task: TASK.FleetTask, state: PyTree, seed: int,
-                 device, cached: Optional[PyTree] = None):
+                 device, cached: Optional[PyTree] = None, first: int = 0):
         self.task, self.state, self.seed = task, state, seed
         self.device = torch.device(device)
         self.cached = cached
+        self.first = first
 
     @classmethod
     def draw(cls, task, state, seed: int, num_clients: int, device,
-             cache: bool) -> "ClientData":
-        """The data of a ``num_clients`` fleet; with ``cache`` every batch
-        is drawn now, ``_DRAW_BLOCK`` clients at a time."""
-        data = cls(task, state, seed, device)
-        if cache:
-            parts = [data.block(j, min(j + _DRAW_BLOCK, num_clients))
-                     for j in range(0, num_clients, _DRAW_BLOCK)]
+             cache: bool, span: Optional[tuple[int, int]] = None
+             ) -> "ClientData":
+        """The data of a ``num_clients`` fleet; with ``cache`` the batches
+        of the clients in ``span`` (default: all; an empty span caches
+        none) are drawn now, ``_DRAW_BLOCK`` clients at a time."""
+        lo, hi = (0, num_clients) if span is None else span
+        data = cls(task, state, seed, device, first=lo)
+        if cache and hi > lo:
+            parts = [data.block(j, min(j + _DRAW_BLOCK, hi))
+                     for j in range(lo, hi, _DRAW_BLOCK)]
             data.cached = {k: torch.cat([p[k] for p in parts])
                            for k in parts[0]}
         return data
@@ -470,13 +573,15 @@ class ClientData:
     def take(self, clients: torch.Tensor) -> PyTree:
         """The batches of the flat client indices ``clients``."""
         if self.cached is not None:
-            return {k: v[clients] for k, v in self.cached.items()}
+            return {k: v[clients - self.first]
+                    for k, v in self.cached.items()}
         return self.task.client_batch(self.state, self.seed, clients)
 
     def block(self, start: int, stop: int) -> PyTree:
         """The batches of clients ``start`` to ``stop - 1`` (a view of the
         cache where there is one)."""
         if self.cached is not None:
+            start, stop = start - self.first, stop - self.first
             return {k: v[start:stop] for k, v in self.cached.items()}
         return self.task.client_batch(
             self.state, self.seed,
@@ -543,10 +648,20 @@ def _grads_fn(task: TASK.FleetTask, params: PyTree, cfg: FleetConfig):
     return grads
 
 
+def _grad_template(params: PyTree, w: torch.Tensor) -> PyTree:
+    """Zeros in the layout and dtype of a weighted gradient sum (each
+    leaf's dtype promoted with the weights' and float32, as the gradient
+    paths accumulate): a rank's part where it has no client."""
+    return pruning.tree_map(lambda p: torch.zeros(
+        p.shape, device=p.device, dtype=torch.promote_types(
+            torch.promote_types(p.dtype, w.dtype), torch.float32)), params)
+
+
 def _fleet_grads(task: TASK.FleetTask, params: PyTree, rho: torch.Tensor,
                  agg_w: torch.Tensor, sched_w: torch.Tensor,
                  cfg: FleetConfig, data: ClientData,
-                 cohort: Optional[torch.Tensor] = None):
+                 cohort: Optional[torch.Tensor] = None,
+                 split: Optional[Split] = None):
     """Weighted-sum gradients over the fleet, ``cell_chunk`` cells at a
     time (a ragged remainder is one exact-sized last block), summed in
     order.  Returns (grad_wsum, sum agg_w, mean scheduled loss).
@@ -554,27 +669,41 @@ def _fleet_grads(task: TASK.FleetTask, params: PyTree, rho: torch.Tensor,
     ``cohort`` ((C, m) scheduled indices) gathers rates, weights and
     batches, so the gradient pass runs over C m clients, not C I;
     unscheduled clients weigh 0, so only the association of the float
-    sums changes."""
+    sums changes.  With ``split`` this rank runs its ``_block`` of the
+    flat clients (or cohort) and one all-reduce sums the parts."""
     c, i = rho.shape
     flat = None
     if cohort is not None:
         rho, agg_w, sched_w = (torch.take_along_dim(a, cohort, dim=-1)
                                for a in (rho, agg_w, sched_w))
-        flat = torch.arange(c, device=cohort.device)[:, None] * i + cohort
+        flat = (torch.arange(c, device=cohort.device)[:, None] * i
+                + cohort).reshape(-1)
         i = cohort.shape[-1]
-    chunk = cfg.cell_chunk if 0 < cfg.cell_chunk < c else c
-    grads = _grads_fn(task, params, cfg)
+    rho, agg_w, sched_w = (a.reshape(-1) for a in (rho, agg_w, sched_w))
+    step = (cfg.cell_chunk if 0 < cfg.cell_chunk < c else c) * i
+    lo, hi = _block(c * i, split)
     out = None
-    for j in range(0, c, chunk):
-        k = min(j + chunk, c)
-        batch = (data.block(j * i, k * i) if flat is None
-                 else data.take(flat[j:k].reshape(-1)))
-        w_flat = agg_w[j:k].reshape(-1)
-        lw_flat = sched_w[j:k].reshape(-1)
-        g, losses = grads(rho[j:k].reshape(-1), batch, w_flat)
+    if hi > lo:
+        grads = _grads_fn(task, params, cfg)
+    for j in range(lo, hi, step):
+        k = min(j + step, hi)
+        batch = data.block(j, k) if flat is None else data.take(flat[j:k])
+        w_flat, lw_flat = agg_w[j:k], sched_w[j:k]
+        g, losses = grads(rho[j:k], batch, w_flat)
         part = (g, torch.sum(w_flat), torch.sum(losses * lw_flat),
                 torch.sum(lw_flat))
         out = part if out is None else _tree_add(out, part)
+    if split is not None:
+        template = _grad_template(params, agg_w)
+        if out is None:
+            zero = agg_w.new_zeros(())
+            out = (template, zero, zero, zero)
+        leaves = [p.to(t.dtype) for p, t in zip(pruning.flatten(out[0]),
+                                                pruning.flatten(template))]
+        summed = _all_reduce_sum(leaves + [v.to(agg_w.dtype)
+                                           for v in out[1:]], split)
+        out = (pruning.unflatten(out[0], summed[:len(leaves)]),
+               *summed[len(leaves):])
     g_wsum, w_sum, loss_sum, loss_w = out
     return g_wsum, w_sum, loss_sum / torch.clamp_min(loss_w, 1.0)
 
@@ -620,8 +749,42 @@ def _solve_cells_chunked(chunk: int, h_up, num_samples, cpu_hz, tx_power,
                                            mask, cap))
 
 
+_CLIENT_FIELDS = ("prune", "bandwidth", "per")                 # (C, I)
+_CELL_FIELDS = ("deadline", "inner_cost", "iterations", "feasible")  # (C,)
+
+
+def _solve_cells_split(split: Split, chunk: int, operands: tuple, **kw
+                       ) -> SOLVER.CellSolution:
+    """``_solve_cells_chunked`` over this rank's ``_block`` of cells, then
+    one all-gather of every rank's block (packed in the gains' dtype; the
+    iteration counts and feasibility flags are small integers, exact
+    there), so every rank holds the whole solution, bitwise the global
+    one.  ``operands`` lead with the (C, I) gains."""
+    h_up = operands[0]
+    c, i = h_up.shape
+    lo, hi = _block(c, split)
+    packed = h_up.new_zeros((hi - lo, len(_CLIENT_FIELDS) * i
+                             + len(_CELL_FIELDS)))
+    if hi > lo:
+        sol = _solve_cells_chunked(
+            chunk, *pruning.tree_map(lambda a: a[lo:hi], operands), **kw)
+        packed = torch.cat(
+            [getattr(sol, f) for f in _CLIENT_FIELDS]
+            + [getattr(sol, f)[:, None].to(h_up.dtype) for f in _CELL_FIELDS],
+            dim=-1)
+    whole = _all_gather_blocks(packed, c, split)
+    n = len(_CLIENT_FIELDS) * i
+    out = {f: v.contiguous() for f, v in zip(
+        _CLIENT_FIELDS, whole[:, :n].split(i, dim=-1))}
+    out.update({f: v.contiguous() for f, v in zip(_CELL_FIELDS,
+                                                  whole[:, n:].unbind(-1))})
+    return SOLVER.CellSolution(
+        **dict(out, iterations=out["iterations"].to(torch.int32),
+               feasible=out["feasible"].to(torch.bool)))
+
+
 def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation,
-                     solve_fn=None):
+                     solve_fn=None, mesh=None):
     """One draw's control pass: channel -> schedule -> Algorithm 1 ->
     realized latencies -> straggler and packet draws.
 
@@ -635,7 +798,10 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation,
     ``CellSolution`` of the whole fleet on the run's device) replaces the
     solver, as in the reference; every draw and latency term stays the
     engine's own.  With telemetry the pass also computes the realized
-    uplink SINR (no extra draw) and the fixed point's residuals."""
+    uplink SINR (no extra draw) and the fixed point's residuals.  On a
+    ``mesh`` the interference-free solve splits its cells over the cell
+    dim (``_solve_cells_split``); the rest runs whole on every rank."""
+    cells = _cell_split(mesh)
     w = cfg.wireless
     n0, b_hz = w.noise_psd_w_per_hz, w.bandwidth_hz
     geo = resolve_geometry(cfg)
@@ -708,8 +874,13 @@ def _make_control_fn(cfg: FleetConfig, pop: TOPO.ClientPopulation,
             clients = tuple(torch.take_along_dim(a, cohort, dim=-1)
                             for a in clients)
         *clients, solve_mask = clients
-        sol = _solve_cells_chunked(cfg.control_chunk, *clients, m_round,
-                                   solve_mask, cap, **solve_kw)
+        operands = (*clients, m_round, solve_mask, cap)
+        if cells is None:
+            sol = _solve_cells_chunked(cfg.control_chunk, *operands,
+                                       **solve_kw)
+        else:
+            sol = _solve_cells_split(cells, cfg.control_chunk, operands,
+                                     **solve_kw)
         if not gathered:
             return sol
 
@@ -805,11 +976,13 @@ def _with_eval(metrics: dict, task: TASK.FleetTask, state: PyTree,
 
 def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
                          state: PyTree, pop: TOPO.ClientPopulation,
-                         data: ClientData):
+                         data: ClientData, mesh=None):
     """The model half of a sync round: consume a RoundControl and return
-    the FedSGD update, the Theorem-1 accumulators and the metrics."""
+    the FedSGD update, the Theorem-1 accumulators and the metrics.  On a
+    ``mesh`` the gradient pass splits over its ranks (``_fleet_grads``)."""
 
     grad_tel = cfg.telemetry is not None and cfg.telemetry.gradients
+    split = _world_split(mesh)
 
     def apply_round(carry, ctl: RoundControl):
         params, per_sum, prune_sum = carry
@@ -818,7 +991,7 @@ def _make_apply_round_fn(cfg: FleetConfig, task: TASK.FleetTask,
         with torch.profiler.record_function("fleet.gradient"):
             g_wsum, w_sum, mean_loss = _fleet_grads(
                 task, params, sol.prune, agg_w, mask, cfg, data,
-                cohort=ctl.cohort)
+                cohort=ctl.cohort, split=split)
         with torch.profiler.record_function("fleet.merge"):
             new_params = _sgd(params, g_wsum, w_sum, cfg.lr)
         metrics, q_eff = _round_metrics(cfg, pop, ctl, active, arrivals,
@@ -1027,25 +1200,35 @@ def _slot_groups(cfg: FleetConfig, head: int, tau: torch.Tensor):
 
 
 def _buffer_grads(task: TASK.FleetTask, cfg: FleetConfig, hist: PyTree,
-                  head: int, tau: torch.Tensor, batch: PyTree,
-                  rho: torch.Tensor, w_merge: torch.Tensor):
-    """The buffer's weighted gradient sum, each update at its download
-    version, and its per-client losses.
+                  head: int, tau: torch.Tensor, data: ClientData,
+                  sel: torch.Tensor, rho: torch.Tensor,
+                  w_merge: torch.Tensor, split: Optional[Split] = None):
+    """The weighted gradient sum of the buffer (the flat clients ``sel``),
+    each update at its download version, and its per-client losses.
 
     Each populated slot (``_slot_groups``), in ascending order, takes its
     own clients only: one ranking (the fused path's ``tile_norms``
     launch) and one gradient call, summed in slot order.  Gathering the
     slot's clients keeps the work at K clients an event (passing the whole
     buffer with zero weights outside the slot, as the reference's static
-    shapes force, costs K per populated slot)."""
+    shapes force, costs K per populated slot).  With ``split`` this rank
+    takes its ``_block`` of the buffer and one all-reduce sums the parts,
+    the losses with them (zero outside each block, so those sum exactly)."""
     g_wsum = pruning.tree_map(lambda a: torch.zeros_like(a[0]), hist)
     losses = torch.zeros_like(w_merge)
-    for s, idx in _slot_groups(cfg, head, tau):
+    lo, hi = _block(sel.shape[0], split)
+    batch = data.take(sel[lo:hi]) if hi > lo else None
+    for s, idx in _slot_groups(cfg, head, tau[lo:hi]):
         params_s = pruning.tree_map(lambda a: a[s], hist)
         g, l_s = _grads_fn(task, params_s, cfg)(
-            rho[idx], {k: v[idx] for k, v in batch.items()}, w_merge[idx])
+            rho[lo:hi][idx], {k: v[idx] for k, v in batch.items()},
+            w_merge[lo:hi][idx])
         g_wsum = pruning.tree_map(lambda a, b: a + b.to(a.dtype), g_wsum, g)
-        losses = losses.index_copy(0, idx, l_s.to(losses.dtype))
+        losses = losses.index_copy(0, idx + lo, l_s.to(losses.dtype))
+    if split is not None:
+        leaves = pruning.flatten(g_wsum)
+        summed = _all_reduce_sum(leaves + [losses], split)
+        g_wsum, losses = pruning.unflatten(g_wsum, summed[:-1]), summed[-1]
     return g_wsum, losses
 
 
@@ -1081,7 +1264,8 @@ def _buffer_cell_sums(task: TASK.FleetTask, cfg: FleetConfig, hist: PyTree,
 
 
 def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
-                     pop: TOPO.ClientPopulation, data: ClientData):
+                     pop: TOPO.ClientPopulation, data: ClientData,
+                     mesh=None):
     """One server event: fill the buffer with the K earliest arrivals,
     merge them (staleness-discounted) against the ring buffer, bump the
     version, relaunch the merged clients with the control draw ``ctl``.
@@ -1092,7 +1276,9 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
     ``cloud_period``-th event the cloud merges the edges, pays the
     backhaul and pushes its model into the ring buffer, which otherwise
     keeps the current checkpoint, so clients only download cloud
-    models."""
+    models.  On a ``mesh`` the single-tier buffer splits over its ranks
+    (``_buffer_grads``); the two-tier buffer runs whole on every rank."""
+    split = _world_split(mesh)
     acfg = cfg.async_config
     w = cfg.wireless
     n = cfg.topology.num_clients
@@ -1129,7 +1315,6 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
             dtype=dtype)
 
         # 3. gradients at each client's download version, then the step
-        batch = data.take(sel)
         params = pruning.tree_map(lambda a: a[head], hist)
         tail = ()
         if two_tier:
@@ -1138,8 +1323,8 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
                       ).to(dtype)                                  # (C, K)
             with torch.profiler.record_function("fleet.gradient"):
                 num, losses = _buffer_cell_sums(
-                    task, cfg, hist, head, tau, batch, gather(st.rho),
-                    w_merge, onehot)
+                    task, cfg, hist, head, tau, data.take(sel),
+                    gather(st.rho), w_merge, onehot)
             den = torch.sum(onehot * w_merge, dim=-1)              # (C,)
 
             def edge_step(e, g):
@@ -1165,7 +1350,8 @@ def _make_async_step(cfg: FleetConfig, task: TASK.FleetTask, state: PyTree,
         else:
             with torch.profiler.record_function("fleet.gradient"):
                 g_wsum, losses = _buffer_grads(task, cfg, hist, head, tau,
-                                               batch, gather(st.rho), w_merge)
+                                               data, sel, gather(st.rho),
+                                               w_merge, split)
             with torch.profiler.record_function("fleet.merge"):
                 new_params = _sgd(params, g_wsum, torch.sum(w_merge), cfg.lr)
             eval_params = new_params
@@ -1234,7 +1420,8 @@ class Simulation:
     ``apply(carry, control(r))``: the control pass depends on the draws
     alone, so it can be timed apart.  ``data`` holds the clients' batches
     (cached or streamed); ``solve_fn`` replaces the control pass's solver
-    (``_make_control_fn``)."""
+    (``_make_control_fn``); ``mesh`` splits the round over its ranks (see
+    the module docstring), each of which builds its own Simulation."""
 
     cfg: FleetConfig
     task: TASK.FleetTask
@@ -1245,19 +1432,21 @@ class Simulation:
     draws: Any
     mode: str = "sync"
     solve_fn: Any = None
+    mesh: Any = None
 
     def __post_init__(self):
         self.two_tier = self.cfg.cloud_period >= 1
         self._control = _make_control_fn(self.cfg, self.population,
-                                         solve_fn=self.solve_fn)
+                                         solve_fn=self.solve_fn,
+                                         mesh=self.mesh)
+        args = (self.cfg, self.task, self.task_state, self.population,
+                self.data)
         if self.mode == "async":
-            make = _make_async_step
+            self._apply = _make_async_step(*args, mesh=self.mesh)
         elif self.two_tier:
-            make = _make_two_tier_round_fn
+            self._apply = _make_two_tier_round_fn(*args)
         else:
-            make = _make_apply_round_fn
-        self._apply = make(self.cfg, self.task, self.task_state,
-                           self.population, self.data)
+            self._apply = _make_apply_round_fn(*args, mesh=self.mesh)
 
     def control(self, r: int) -> RoundControl:
         """The control pass step r consumes: draw r in a sync round; in
@@ -1360,8 +1549,29 @@ class Simulation:
         )
 
 
+def _data_span(cfg: FleetConfig, mode: str, split: Optional[Split]
+               ) -> Optional[tuple[int, int]]:
+    """The clients a rank's cache must hold: on a sync single-tier run the
+    cells its ``_block`` of the flat clients (or cohort) reaches; else
+    all (None): an async buffer or a two-tier round reaches any client."""
+    if split is None or mode != "sync" or cfg.cloud_period >= 1:
+        return None
+    c, i = cfg.topology.shape
+    m = SCHED.cohort_size(cfg.schedule, i) if _cohort_enabled(cfg) else i
+    lo, hi = _block(c * m, split)
+    return lo // m * i, -(-hi // m) * i
+
+
+_TWO_TIER_MESH_WARNING = (
+    "two-tier aggregation (cloud_period >= 1) runs the gradient "
+    "pass as a per-cell scan and does not shard client work over "
+    "the mesh; the mesh placement of population tensors still "
+    "applies but per-round compute stays serial over cells.")
+
+
 def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
-                     device=None, dtype: torch.dtype = torch.float32,
+                     mesh=None, device=None,
+                     dtype: torch.dtype = torch.float32,
                      draws=None, start: Optional[SimStart] = None
                      ) -> Simulation:
     """Drop the fleet, build the data and model, and return a Simulation.
@@ -1369,7 +1579,13 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
     Args:
       cfg: the run configuration.
       mode: ``"sync"`` (FedSGD rounds) or ``"async"`` (FedBuff events).
-      device: where everything runs; ``None`` means ``"cuda"``.
+      mesh: optional ``DeviceMesh`` (``launch.mesh``; every rank of it
+        calls this with the same arguments): the cells split over its
+        "cells" dim (else "data") and the clients over all its ranks (see
+        the module docstring); two-tier runs whole on every rank and
+        warns, as the reference does.
+      device: where everything runs; ``None`` means ``"cuda"`` (on a
+        mesh, this rank's card: ``launch.mesh.local_device``).
       dtype: the float dtype of the run (the reference's x64 flag).
       draws: the draw source (default ``GeneratorDraws(cfg.seed, device)``,
         with Gumbel draws when the schedule is partial and the hex draws
@@ -1386,7 +1602,9 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
     run's device; anything else raises ``ValueError``.
     """
     _check_supported(cfg, mode)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else local_device(device)
+    if mesh is not None and cfg.cloud_period >= 1:
+        warnings.warn(_TWO_TIER_MESH_WARNING, stacklevel=2)
     task = resolve_task(cfg)
     geo = resolve_geometry(cfg)
     topo = cfg.topology
@@ -1422,15 +1640,18 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
     if batches is None:
         data = ClientData.draw(task, state, seed, topo.num_clients, dev,
                                cache=_cache_data(cfg, task, state, seed,
-                                                 dev))
+                                                 dev),
+                               span=_data_span(cfg, mode,
+                                               _world_split(mesh)))
     else:
         data = ClientData(task, state, seed, dev, cached=batches)
     return Simulation(cfg=cfg, task=task, params=params, task_state=state,
-                      population=pop, data=data, draws=draws, mode=mode)
+                      population=pop, data=data, draws=draws, mode=mode,
+                      mesh=mesh)
 
 
 def run_fleet(cfg: FleetConfig, mode: str = "sync", progress: bool = False,
-              *, device=None, dtype: torch.dtype = torch.float32,
+              *, mesh=None, device=None, dtype: torch.dtype = torch.float32,
               draws=None, start: Optional[SimStart] = None,
               sink: Optional[TEL.TelemetrySink] = None,
               recorder: Optional[TEL.SpanRecorder] = None) -> FleetResult:
@@ -1441,23 +1662,26 @@ def run_fleet(cfg: FleetConfig, mode: str = "sync", progress: bool = False,
     per-round records after the run (it is not closed); ``recorder`` (a
     ``telemetry.SpanRecorder``) records the ``fleet.build``,
     ``fleet.simulate`` (to the device's last op) and ``fleet.finalize``
-    spans."""
-    rec = recorder if recorder is not None else TEL.SpanRecorder()
+    spans.  On a ``mesh`` every rank returns the same result, and only
+    rank 0 of the default group records spans, emits records and prints
+    the ``progress`` lines."""
+    lead = mesh is None or dist.get_rank() == 0
+    rec = recorder if recorder is not None and lead else TEL.SpanRecorder()
     with rec.span("fleet.build", mode=mode,
                   clients=cfg.topology.num_clients):
-        sim = build_simulation(cfg, mode, device=device, dtype=dtype,
-                               draws=draws, start=start)
+        sim = build_simulation(cfg, mode, mesh=mesh, device=device,
+                               dtype=dtype, draws=draws, start=start)
     with rec.span("fleet.simulate", rounds=cfg.rounds):
         out = sim.simulate(sim.params)
         if sim.population.pathloss.is_cuda:
             torch.cuda.synchronize(sim.population.pathloss.device)
     with rec.span("fleet.finalize"):
         result = sim.finalize(*out)
-    if sink is not None:
+    if sink is not None and lead:
         TEL.emit_result(result, sink, meta={
             "clients": cfg.topology.num_clients, "kernel": cfg.kernel,
             "cloud_period": cfg.cloud_period})
-    if progress:
+    if progress and lead:
         shown = sorted(set(range(0, cfg.rounds, max(cfg.rounds // 10, 1)))
                        | {cfg.rounds - 1})
         for rnd in shown:

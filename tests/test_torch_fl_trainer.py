@@ -22,14 +22,18 @@ every rank ending with the same params and the two ranks of each "model"
 coordinate with bitwise equal shards; two chained steps and a block-128
 step (its leaves' shards cut their tiles, so they are gathered for the
 ranking) against the same mesh's unsharded step (``tp_shard_params=
-False``), at 1e-5 with the same ``achieved_rho``.  ``fl_input_specs``
-against the reference's on a duck-typed 16 x 16 mesh.
+False``), at 1e-5 with the same ``achieved_rho``; the first case's
+sharded params through ``checkpoint.save`` (written whole, bitwise the
+file of the params gathered, loading in the reference's ``restore``) and
+``checkpoint.restore`` (each rank's local shards bitwise).
+``fl_input_specs`` against the reference's on a duck-typed 16 x 16 mesh.
 """
 
 import os
 import pickle
 import subprocess
 import sys
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -394,7 +398,7 @@ def test_psum_aggregate_world_2_matches_aggregate(world2, case):
 # ---------------------------------------------------------------------------
 
 _TP_RANK = r"""
-import pickle, sys
+import os, pickle, sys
 import torch
 import torch.distributed as dist
 rank, world, store, inp, out = sys.argv[1:6]
@@ -402,7 +406,7 @@ rank, world = int(rank), int(world)
 dist.init_process_group("gloo", store=dist.FileStore(store, world),
                         rank=rank, world_size=world)
 from torch.distributed.tensor import DTensor
-from repro_torch import weights
+from repro_torch import checkpoint, weights
 from repro_torch.configs import get_config
 from repro_torch.core import pruning
 from repro_torch.federated import trainer as FT
@@ -435,12 +439,29 @@ res = {"coord": mesh.get_coordinate(), "cases": [], "chain": {},
        "block128": {}}
 tp = FT.make_fl_train_step(cfg, mesh, ("data",), block=data["block"],
                            lr=data["lr"], tp_shard_params=True)
+stepped = []
 for arrivals in data["arrivals"]:
     new, ms = run(tp, params, arrivals)
+    stepped.append(new)
     res["cases"].append({
         "params": whole(new), "metrics": ms[0],
         "local": [a.to_local().numpy() for a in pruning.flatten(new)],
         "placements": [tuple(a.placements) for a in pruning.flatten(new)]})
+# checkpoints of the first case's sharded params: written collectively,
+# and, by rank 0 alone, the same params gathered whole as plain tensors
+ckpt = os.path.join(os.path.dirname(out), "ckpt")
+first = stepped[0]
+checkpoint.save(os.path.join(ckpt, "sharded.npz"), first)
+gathered = pruning.tree_map(lambda a: a.full_tensor(), first)
+if rank == 0:
+    checkpoint.save(os.path.join(ckpt, "whole.npz"), gathered)
+back = checkpoint.restore(os.path.join(ckpt, "sharded.npz"), first)
+res["restored"] = [
+    isinstance(b, DTensor) and b.device_mesh == a.device_mesh
+    and tuple(b.placements) == tuple(a.placements)
+    and torch.equal(b.to_local(), a.to_local())
+    for a, b in zip(pruning.flatten(first), pruning.flatten(back))]
+res["first"] = whole(first)
 for sharded in (True, False):
     step = FT.make_fl_train_step(cfg, mesh, ("data",), block=data["block"],
                                  lr=data["chain_lr"],
@@ -518,7 +539,7 @@ def world4(tmp_path_factory):
                env) for r in range(4)]
     for rc, err in _wait_all(procs):
         assert rc == 0, err[-3000:]
-    out = {}
+    out = {"ckpt": tmp / "ckpt"}
     for name in ("ref", "rank0", "rank1", "rank2", "rank3"):
         with open(tmp / f"{name}.pkl", "rb") as f:
             out[name] = pickle.load(f)
@@ -595,6 +616,35 @@ def test_world4_block128_gathers_and_matches(world4):
         assert tp["gathers"] > 0 and rep["gathers"] == 0
         assert tp["metrics"][0]["achieved_rho"] ==             rep["metrics"][0]["achieved_rho"]
         assert _worst_rel(tp["params"], rep["params"]) <= RTOL
+
+
+def test_checkpoint_of_sharded_params_is_written_whole(world4):
+    """``checkpoint.save`` of the sharded step's DTensor params (every
+    rank calling it, rank 0 writing): the same arrays, byte for byte, as
+    the file of the params gathered whole, loading in the reference's
+    ``restore`` with the values of the gathered params."""
+    from repro import checkpoint as JCK
+    data, out = world4
+    sharded = zipfile.ZipFile(out["ckpt"] / "sharded.npz")
+    whole = zipfile.ZipFile(out["ckpt"] / "whole.npz")
+    assert sorted(sharded.namelist()) == sorted(whole.namelist())
+    for name in whole.namelist():
+        assert sharded.read(name) == whole.read(name), name
+    back = JCK.restore(str(out["ckpt"] / "sharded.npz"), data["params"])
+    got = jax.tree_util.tree_leaves(back)
+    assert len(got) == len(out["rank0"]["first"])
+    for a, b in zip(got, out["rank0"]["first"]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_checkpoint_restores_local_shards(world4):
+    """``checkpoint.restore`` into the sharded params: DTensors on their
+    mesh with their placements, each rank's local shard bitwise."""
+    _, out = world4
+    for r in range(4):
+        restored = out[f"rank{r}"]["restored"]
+        assert restored and all(restored)
 
 
 def test_fl_input_specs_match_reference(monkeypatch):
