@@ -259,6 +259,20 @@ Phases (any failure exits non-zero and prints no result line):
                fewer cards one line says so.  ``--phase20a`` runs phases
                1, 2 (the two fleet kernels) and 20a, ``--phase20b`` 1, 2
                and 20b.
+ 21. the dry run and the roofline (``launch.dryrun``, ``launch.roofline``)
+               — (a) phase 18b's warm host step at smollm-135m's full
+               width as a roofline share: ``model_flops`` of its B x S
+               tokens (6 N D) over (ms x 989 TFLOP/s, the bfloat16
+               peak), beside the card's name and power limit; (b) in two
+               processes of their own (no card, ``CUDA_VISIBLE_DEVICES``
+               empty), ``python -m repro_torch.launch.dryrun --arch
+               smollm-135m --shape decode_32k`` (a fake group of 256
+               ranks, the step traced on the 16 x 16 mesh under
+               ``FakeTensorMode``) and ``--fleet`` (512 ranks, the
+               fleet engine's cell solve and gradient sum): their rows
+               printed, ``OK`` and ``0 failed`` or exit 0; fails if the
+               fake group or ``FakeTensorMode`` is missing.
+               ``--phase21`` runs phases 1 and 21b.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
@@ -3752,14 +3766,14 @@ def host_card_vs_cpu(cfg, card: str) -> None:
                              f"element-steps held, under 90%")
 
 
-def run_host_full(card: str) -> None:
+def run_host_full(card: str) -> float:
     """18b: smollm-135m at full width (bfloat16 params) through the
     launcher's host step: 10 steps of (8, 128) from seeded params, the
     loss falling and a rerun bitwise equal; the warm step's median ms,
     peak memory and a profiled step's busy share; the prefill step's
     logits against ``forward``'s last position within 1e-5 and the serve
     step against ``decode_step`` bitwise; then the depth cut card vs
-    CPU."""
+    CPU.  Returns the warm step's median ms."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3819,6 +3833,7 @@ def run_host_full(card: str) -> None:
     del params, cache, start
     torch.cuda.empty_cache()
     host_card_vs_cpu(cfg, card)
+    return med
 
 
 @contextlib.contextmanager
@@ -4042,20 +4057,20 @@ def run_fl_two_ranks(card: str, floor_ms: float) -> tuple[int, float]:
 
 
 def run_phase18(card: str, floor_ms: float) -> dict:
-    """Phase 18; returns row 2's tile-norm launches, 18c's ranking figures
-    and the smoke-width rankings' largest error."""
+    """Phase 18; returns row 2's tile-norm launches, 18c's ranking figures,
+    the smoke-width rankings' largest error and 18b's warm step ms."""
     import torch.distributed as dist
     phase("  [18a] the launcher's command line")
     cli, cli_err = run_cli(card, floor_ms)
     phase("  [18b] smollm-135m at full width: the host step")
-    run_host_full(card)
+    host_ms = run_host_full(card)
     phase("  [18c] the FL step at full width, one rank")
     fl, regime = run_fl_full(card, floor_ms)
     dist.destroy_process_group()
     phase("  [18d] the FL step on two ranks")
     two, two_err = run_fl_two_ranks(card, floor_ms)
     return {"cli": cli, "fl": fl, "two": two, "regime": regime,
-            "smoke_err": max(cli_err, two_err)}
+            "smoke_err": max(cli_err, two_err), "host_ms": host_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -4972,14 +4987,90 @@ def run_fleet_mesh_full(card: str) -> None:
         f"{json.dumps(total)} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+DRYRUN_TIMEOUT = 240
+
+
+def host_roofline_share(ms: float, card: str) -> None:
+    """21a: 18b's warm host step (smollm-135m at full width, B x S
+    tokens) as a share of the card's bfloat16 peak: ``model_flops`` (6 N
+    D) over ms x ``roofline.PEAK_FLOPS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import roofline as RF
+    from repro_torch.models import model as M
+    cfg = get_config("smollm-135m")
+    shape = InputShape("host_step", HOST_SEQ, HOST_BATCH, "train")
+    n = RF.active_param_count(cfg, M.init_params(cfg, None))
+    flops = RF.model_flops(cfg, shape, n)
+    share = flops / (ms * 1e-3 * RF.PEAK_FLOPS)
+    log(f"  18b's host step: {n} params x {HOST_BATCH * HOST_SEQ} tokens, "
+        f"model_flops {flops:.4e} in {ms:.2f} ms = {flops / ms / 1e9:.2f} "
+        f"TFLOP/s, {share:.4%} of {RF.PEAK_FLOPS / 1e12:.0f} TFLOP/s "
+        f"[{card}]")
+
+
+def run_dryruns() -> None:
+    """21b: the dry run of smollm-135m decode_32k and the fleet dry run,
+    each in a process of its own with no card, started together; their
+    rows printed.  Fails unless both exit 0 (and the combo prints OK and
+    0 failed), or if the fake group or ``FakeTensorMode`` is missing."""
+    import os
+    try:
+        from torch._subclasses.fake_tensor import FakeTensorMode  # noqa
+        from torch.testing._internal.distributed.fake_pg import FakeStore  # noqa
+        import torch.distributed as dist
+        if not dist.is_backend_available("fake"):
+            raise ImportError("no 'fake' process-group backend")
+    except ImportError as e:
+        raise AssertionError(f"the dry run's fake group or FakeTensorMode "
+                             f"is missing: {e}") from e
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    env.pop("WORLD_SIZE", None)
+    runs = {"combo": ["--arch", "smollm-135m", "--shape", "decode_32k"],
+            "fleet": ["--fleet"]}
+    t0 = time.perf_counter()
+    procs = {what: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT)) for what, args in runs.items()}
+    outs = {}
+    try:
+        for what, proc in procs.items():
+            outs[what] = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for what, (out, err) in outs.items():
+        for line in out.splitlines():
+            if line.strip():
+                log(f"  {line}")
+        if procs[what].returncode != 0:
+            raise AssertionError(f"dry run {runs[what]} exited "
+                                 f"{procs[what].returncode}: {err[-3000:]}")
+    if "OK   smollm-135m" not in outs["combo"][0] \
+            or "1 ok, 0 skipped, 0 failed" not in outs["combo"][0]:
+        raise AssertionError("the smollm-135m decode_32k dry run did not "
+                             "print OK and 0 failed")
+    log(f"  both dry runs in {time.perf_counter() - t0:.1f} s (wall, run "
+        f"together)")
+
+
 def main(argv: list) -> int:
     """No arguments: every phase, on one card.  ``--phase19b``: the
     device line, the tile-norm kernel's build and phase 19b alone (the
     four-card run); ``--phase20b`` likewise with both fleet kernels and
-    phase 20b, and ``--phase20a`` with phase 20a (one card)."""
+    phase 20b, and ``--phase20a`` with phase 20a (one card);
+    ``--phase21``: the device line and the dry runs (21b)."""
     import torch
     only = argv[0] if argv in (["--phase19b"], ["--phase20a"],
-                               ["--phase20b"]) else None
+                               ["--phase20b"], ["--phase21"]) else None
     if argv and only is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -5002,6 +5093,11 @@ def main(argv: list) -> int:
     log(card)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
         f"device count {torch.cuda.device_count()}")
+
+    if only == "--phase21":
+        phase("[21b] the dry runs")
+        run_dryruns()
+        return 0
 
     phase("[2] build")
     from repro_torch.kernels import build
@@ -5146,6 +5242,12 @@ def main(argv: list) -> int:
     phase("  [20b] a million clients over four cards")
     run_fleet_mesh_full(card)
     rows += serve_rows
+
+    phase("[21] the dry run and the roofline")
+    phase("  [21a] 18b's host step as a roofline share")
+    host_roofline_share(p18["host_ms"], card)
+    phase("  [21b] the dry runs, on a fake group")
+    run_dryruns()
 
     phase("[end]")
     print(json.dumps({"kernels": rows}))

@@ -399,7 +399,9 @@ def block_thresholds(state: BlockNormState, rate: torch.Tensor
     idx = torch.searchsorted(state.cum_frac.to(dtype),
                              rate.to(dtype).contiguous(), right=True)
     idx = torch.clamp(idx, 0, state.sorted_norms.numel() - 1)
-    return state.sorted_norms[idx]
+    # indexed by a 1-D tensor: a 0-d index is read on the host (item()),
+    # which a traced step (the dry run's fake tensors) cannot do
+    return state.sorted_norms[idx.reshape(-1)].reshape(idx.shape)
 
 
 def block_keep(state: list[Optional[BlockNormState]], rates: torch.Tensor

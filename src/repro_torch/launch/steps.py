@@ -12,9 +12,8 @@ last position's logits and writes no cache.  ``batch_specs`` and
 reference's ``ShapeDtypeStruct``s: they allocate nothing, so they run at
 full width.  ``input_specs`` pairs them with their specs on a mesh
 (``launch.shardings``; a ``DeviceMesh`` or any object with its dim names
-and sizes, a 16 x 16 production mesh included) and runs nothing:
-running these steps sharded is the dry run's business, which waits for
-the XLA tooling's slice (ROADMAP.md Queue A).
+and sizes, a 16 x 16 production mesh included) and runs nothing: the
+dry run (``launch.dryrun``) traces these steps sharded on a fake group.
 """
 
 from __future__ import annotations

@@ -7,15 +7,17 @@ paper's pruned-FL step over the ranks of the default group (``--fl``,
 ``federated.trainer``; one rank, or one a client under ``torchrun``,
 each on its own card).
 
-``--production`` (the reference lowers and compiles the step for the
-16x16 or 2x16x16 production mesh through its XLA dry run) is not
-ported: it exits non-zero, naming ROADMAP.md Queue A, item 10 (the XLA
-tooling).
+``--production`` does not train: it traces the step for the 16x16 (or
+2x16x16 with ``--multi-pod``) production mesh on a fake process group
+and prints its roofline row, the dry run's path for one combo
+(``launch.dryrun``, which starts its own fake group: run it as a
+process of its own).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --fl --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --production
 """
 
 from __future__ import annotations
@@ -36,11 +38,6 @@ from repro_torch.launch import mesh as MESH
 from repro_torch.models import model as M
 
 __all__ = ["make_host_step", "main"]
-
-PRODUCTION_REFUSAL = (
-    "--production lowers and compiles the step for the production mesh "
-    "through the reference's XLA dry run (repro.launch.dryrun), which the "
-    "port does not have: ROADMAP.md Queue A, item 10 (the XLA tooling)")
 
 
 def make_host_step(cfg, opt: optimizers.Optimizer, lr: float):
@@ -78,7 +75,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rho", type=float, default=0.3,
                     help="pruning rate for --fl")
     ap.add_argument("--production", action="store_true",
-                    help="not ported (the reference's XLA dry run)")
+                    help="trace the step for the production mesh on a "
+                         "fake group, no exec")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None)
@@ -88,8 +86,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.production:
-        print(PRODUCTION_REFUSAL, file=sys.stderr)
-        return 2
+        from repro_torch.launch import dryrun
+        return dryrun.main(["--arch", args.arch, "--shape", args.shape]
+                           + (["--multi-pod"] if args.multi_pod else [])
+                           + (["--fl"] if args.fl else []))
 
     device = MESH.local_device(args.device)
     cfg = get_config(args.arch).smoke_variant()

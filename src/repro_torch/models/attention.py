@@ -53,7 +53,7 @@ def init_gqa(generator, d_model: int, spec: AttnSpec, dtype) -> dict:
 
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
+    return S.split_heads(x, n)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float
@@ -145,9 +145,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         t += pad
     nq, nk = stripe // q_chunk, t // kv_chunk
     # (B, P, nq, qc, Hkv, G, hd): the query loop runs over nq
-    qc = q.reshape(b, p_stripes, nq, q_chunk, hkv, g, hd).to(torch.float32)
-    kc = k.reshape(b, nk, kv_chunk, hkv, hd).to(torch.float32)
-    vc = v.reshape(b, nk, kv_chunk, hkv, vd).to(torch.float32)
+    qc = S.view(q, (b, p_stripes, nq, q_chunk, hkv, g, hd)).to(torch.float32)
+    kc = S.view(k, (b, nk, kv_chunk, hkv, hd)).to(torch.float32)
+    vc = S.view(v, (b, nk, kv_chunk, hkv, vd)).to(torch.float32)
     qc = S.constrain(qc, "batch", "q_stripes", None, None, "kv", None, None)
     kc = S.constrain(kc, "batch", None, None, "kv", None)
     vc = S.constrain(vc, "batch", None, None, "kv", None)
@@ -189,7 +189,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
     # (B, P, nq, qc, Hkv, G, vd) -> (B, S, H, vd)
-    return torch.stack(outs, dim=2).reshape(b, s, h, vd)
+    return S.view(torch.stack(outs, dim=2), (b, s, h, vd))
 
 
 def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
@@ -221,7 +221,7 @@ def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
         mask = (causal_window_mask(s, s, 0, spec.window, x.device)
                 if spec.causal and kv_x is None else None)
         out = attend(q, k, v, mask, spec.scale)
-    return L.dense(p["wo"], out.reshape(b, s, -1).to(x.dtype))
+    return L.dense(p["wo"], S.merge_heads(out).to(x.dtype))
 
 
 def init_gqa_cache(spec: AttnSpec, batch: int, cache_len: int, dtype,
@@ -273,7 +273,7 @@ def gqa_decode(p: dict, spec: AttnSpec, x: torch.Tensor, cache: dict,
     new_v = cache["v"].index_put((rows, slot), v[:, 0].to(cache["v"].dtype))
     valid = _valid_keys(pos, cache_len, rolling, spec.window)
     out = attend(q, new_k, new_v, valid[:, None, None, :], spec.scale)
-    y = L.dense(p["wo"], out.reshape(b, 1, -1).to(x.dtype))
+    y = L.dense(p["wo"], S.merge_heads(out).to(x.dtype))
     return y, {"k": new_k, "v": new_v}
 
 
@@ -284,7 +284,7 @@ def cross_decode(p: dict, spec: AttnSpec, x: torch.Tensor,
     b = x.shape[0]
     q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
     out = attend(q, memory_k, memory_v, None, spec.scale)
-    return L.dense(p["wo"], out.reshape(b, 1, -1).to(x.dtype))
+    return L.dense(p["wo"], S.merge_heads(out).to(x.dtype))
 
 
 def cross_memory(p: dict, spec: AttnSpec, memory: torch.Tensor
@@ -321,7 +321,7 @@ def _mla_qkv(p: dict, spec: MLASpec, x: torch.Tensor,
     """The shared projections: (q_nope, q_pe, ckv, k_pe)."""
     b, s, _ = x.shape
     q = L.dense(p["wq_up"], L.rms_norm(p["q_norm"], L.dense(p["wq_down"], x)))
-    q = q.reshape(b, s, spec.num_heads, spec.nope_dim + spec.rope_dim)
+    q = _split_heads(q, spec.num_heads)
     q_nope, q_pe = q[..., :spec.nope_dim], q[..., spec.nope_dim:]
     q_pe = L.apply_rope(q_pe, positions, spec.rope_theta)
     ckv = L.rms_norm(p["kv_norm"], L.dense(p["wkv_down"], x))   # (B,S,kvr)
@@ -339,8 +339,8 @@ def mla_forward(p: dict, spec: MLASpec, x: torch.Tensor,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     q_nope, q_pe, ckv, k_pe = _mla_qkv(p, spec, x, positions)
-    k_nope = L.dense(p["wk_up"], ckv).reshape(b, s, h, spec.nope_dim)
-    v = L.dense(p["wv_up"], ckv).reshape(b, s, h, spec.v_head_dim)
+    k_nope = _split_heads(L.dense(p["wk_up"], ckv), h)
+    v = _split_heads(L.dense(p["wv_up"], ckv), h)
     if s >= FLASH_THRESHOLD:
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
@@ -356,7 +356,7 @@ def mla_forward(p: dict, spec: MLASpec, x: torch.Tensor,
         mask = causal_window_mask(s, s, 0, spec.window, x.device)
         probs = torch.softmax(scores + _mask_bias(mask), dim=-1)
         out = torch.einsum("bsht,bthd->bshd", probs, v.to(f32))
-    return L.dense(p["wo"], out.reshape(b, s, -1).to(x.dtype))
+    return L.dense(p["wo"], S.merge_heads(out).to(x.dtype))
 
 
 def init_mla_cache(spec: MLASpec, batch: int, cache_len: int, dtype,
@@ -380,7 +380,7 @@ def mla_decode(p: dict, spec: MLASpec, x: torch.Tensor, cache: dict,
     cache_len = cache["ckv"].shape[1]
     q_nope, q_pe, ckv_new, kpe_new = _mla_qkv(p, spec, x, pos[:, None])
     # absorb W_uk: q_lat[h, kvr] = q_nope[h, nope] @ W_uk[kvr, h*nope]^T
-    wk = p["wk_up"]["w"].reshape(spec.kv_lora_rank, h, spec.nope_dim)
+    wk = _split_heads(p["wk_up"]["w"], h)              # (kvr, h, nope)
     q_lat = torch.einsum("bshd,khd->bshk", q_nope.to(f32), wk.to(f32))
 
     rolling = spec.window is not None and cache_len <= spec.window
@@ -399,7 +399,7 @@ def mla_decode(p: dict, spec: MLASpec, x: torch.Tensor, cache: dict,
                           dim=-1)
     out_lat = torch.einsum("bsht,btk->bshk", probs, ckv.to(f32))
     # absorb W_uv: out[h, vd] = out_lat[h, kvr] @ W_uv[kvr, h*vd]
-    wv = p["wv_up"]["w"].reshape(spec.kv_lora_rank, h, spec.v_head_dim)
+    wv = _split_heads(p["wv_up"]["w"], h)              # (kvr, h, vd)
     out = torch.einsum("bshk,khd->bshd", out_lat, wv.to(f32))
-    y = L.dense(p["wo"], out.reshape(b, 1, -1).to(x.dtype))
+    y = L.dense(p["wo"], S.merge_heads(out).to(x.dtype))
     return y, {"ckv": ckv, "kpe": kpe}

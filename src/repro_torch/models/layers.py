@@ -77,7 +77,7 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype, gated: bool = True,
 # ---------------------------------------------------------------------------
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = S.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -106,7 +106,7 @@ def param_count(params: PyTree) -> int:
 
 def _unstack(tree) -> list:
     """A stage's stacked tree -> one tree per repeat."""
-    leaves = [torch.unbind(leaf) for leaf in pruning.flatten(tree)]
+    leaves = [S.unbind(leaf) for leaf in pruning.flatten(tree)]
     return [pruning.unflatten(tree, [lv[r] for lv in leaves])
             for r in range(len(leaves[0]))] if leaves else []
 
@@ -191,11 +191,13 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def _chunked_nll(cfg, params, x: torch.Tensor, targets: torch.Tensor,
                  chunk: int = _LOSS_CHUNK) -> torch.Tensor:
     """Streaming cross-entropy: logits exist one (B, chunk, V) block at a
-    time, summed chunk by chunk in order; the mean over every token."""
+    time, summed chunk by chunk in order; the mean over every token.  The
+    last chunk is ragged where ``chunk`` does not divide S.  The reference
+    halves its chunk until it divides S, so an odd S (train_4k's 4,095
+    predictions) streams one position at a time there: the same mean,
+    summed in another order, where the port takes 8 chunks."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
-    while s % chunk:
-        chunk //= 2
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(0, s, chunk):
         logits = _unembed(cfg, params, x[:, j:j + chunk])

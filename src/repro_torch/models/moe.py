@@ -28,6 +28,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +71,10 @@ def moe_ffn(p: dict, spec: MoESpec, x: torch.Tensor
     n = b * s
     e, k = spec.num_experts, spec.top_k
     cap = expert_capacity(n, spec)
-    xf = x.reshape(n, d)
+    # DTensor cannot gather rows by data-dependent indices over a sharded
+    # token dim: a sharded x is replicated, so the dispatch is global, as
+    # the reference's is; the experts' products keep their weights' shards
+    xf = S.replicate(x).reshape(n, d)
     dev = x.device
 
     w_router = p["router"]["w"]
@@ -116,7 +120,7 @@ def moe_ffn(p: dict, spec: MoESpec, x: torch.Tensor
 
     # ---- combine: gather each entry's output, sum over k ----
     slot = torch.where(keep, flat_exp * cap + pos, e * cap)
-    ye_rows = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
+    ye_rows = torch.cat([S.view(ye, (e * cap, d)), ye.new_zeros((1, d))])
     wk = (top_w.reshape(n * k) * keep).to(ye.dtype)
     routed = ye_rows[slot] * wk[:, None]
     y = torch.sum(routed.reshape(n, k, d), 1)

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as S
 
 _SQRT_EPS = 1e-8
 _RG_C = 8.0
@@ -112,12 +113,17 @@ def rglru(p: dict, x: torch.Tensor, h0: Optional[torch.Tensor] = None
     """Full-sequence RG-LRU, h_t = a_t h_{t-1} + b_t from ``h0`` (0 if
     None).  x: (B,S,d)."""
     a, b = _rglru_coeffs(p, x)
-    h = b[:, 0] if h0 is None else a[:, 0] * h0.to(b.dtype) + b[:, 0]
-    hs = [h]
-    for t in range(1, x.shape[1]):
-        h = a[:, t] * h + b[:, t]
-        hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype)
+
+    def scan(a, b, *h0):
+        h = b[:, 0] if not h0 else a[:, 0] * h0[0].to(b.dtype) + b[:, 0]
+        hs = [h]
+        for t in range(1, a.shape[1]):
+            h = a[:, t] * h + b[:, t]
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
+    return S.batch_local(scan, a, b, *(() if h0 is None else (h0,))
+                         ).to(x.dtype)
 
 
 def init_rglru_state(batch: int, d: int, device=None) -> dict:
@@ -155,7 +161,7 @@ def _mlstm_gates(p: dict, x: torch.Tensor):
     h = p["w_i"]["w"].shape[1]
 
     def heads(t):
-        return _f32(t.reshape(t.shape[:-1] + (h, t.shape[-1] // h)))
+        return _f32(S.split_heads(t, h))
 
     q = heads(L.dense(p["wq"], x))
     k = heads(L.dense(p["wk"], x))
@@ -192,14 +198,18 @@ def mlstm(p: dict, x: torch.Tensor, state: Optional[dict] = None
     b, s, h, hd = q.shape
     if state is None:
         state = init_mlstm_state(b, h, hd, x.device)
-    carry = (state["C"], state["n"], state["m"])
-    hs = []
-    for t in range(s):
-        carry, ht = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t],
-                                        i_pre[:, t], f_pre[:, t]))
-        hs.append(ht)
-    hs = torch.stack(hs, dim=1)                 # (B,S,H,hd)
-    out = (o.reshape(b, s, h, hd) * hs).reshape(b, s, h * hd)
+
+    def scan(q, k, v, i_pre, f_pre, *carry):
+        hs = []
+        for t in range(s):
+            carry, ht = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t],
+                                            i_pre[:, t], f_pre[:, t]))
+            hs.append(ht)
+        return torch.stack(hs, dim=1)           # (B,S,H,hd)
+
+    hs = S.batch_local(scan, q, k, v, i_pre, f_pre, state["C"], state["n"],
+                       state["m"])
+    out = S.merge_heads(S.split_heads(o, h) * hs)
     return out.to(x.dtype)
 
 
@@ -217,8 +227,7 @@ def mlstm_step(p: dict, x: torch.Tensor, state: dict
     carry = (state["C"], state["n"], state["m"])
     (c_new, n_new, m_new), h = _mlstm_cell(
         carry, (q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0]))
-    b, _, nh, hd = q.shape
-    out = (o[:, 0].reshape(b, nh, hd) * h).reshape(b, 1, nh * hd)
+    out = S.merge_heads(S.split_heads(o[:, :1], q.shape[2]) * h[:, None])
     return out.to(x.dtype), {"C": c_new, "n": n_new, "m": m_new}
 
 
@@ -263,8 +272,7 @@ def _slstm_cell(p: dict, carry, inp):
 
 def _slstm_pre(p: dict, x: torch.Tensor, num_heads: int):
     def heads(t):
-        return _f32(t.reshape(t.shape[:-1]
-                              + (num_heads, t.shape[-1] // num_heads)))
+        return _f32(S.split_heads(t, num_heads))
     return tuple(heads(L.dense(p[name], x))
                  for name in ("w_z", "w_i", "w_f", "w_o"))
 
@@ -277,13 +285,20 @@ def slstm(p: dict, x: torch.Tensor, state: Optional[dict] = None
     b, s, h, hd = z.shape
     if state is None:
         state = init_slstm_state(b, h, hd, x.device)
-    carry = (state["c"], state["n"], state["m"], state["h"])
-    hs = []
-    for t in range(s):
-        carry, ht = _slstm_cell(p, carry, (z[:, t], i[:, t], f[:, t],
-                                           o[:, t]))
-        hs.append(ht)
-    return torch.stack(hs, dim=1).reshape(b, s, h * hd).to(x.dtype)
+    names = ("r_z", "r_i", "r_f", "r_o")
+
+    def scan(z, i, f, o, c, n, m, h, *rec):
+        pr = dict(zip(names, rec))
+        carry, hs = (c, n, m, h), []
+        for t in range(s):
+            carry, ht = _slstm_cell(pr, carry, (z[:, t], i[:, t], f[:, t],
+                                                o[:, t]))
+            hs.append(ht)
+        return torch.stack(hs, dim=1)
+
+    hs = S.batch_local(scan, z, i, f, o, state["c"], state["n"], state["m"],
+                       state["h"], shared=[p[name] for name in names])
+    return S.merge_heads(hs).to(x.dtype)
 
 
 def init_slstm_state(batch: int, num_heads: int, head_dim: int,
@@ -302,6 +317,5 @@ def slstm_step(p: dict, x: torch.Tensor, state: dict
     carry = (state["c"], state["n"], state["m"], state["h"])
     (c, n, m, h), out = _slstm_cell(p, carry,
                                     (z[:, 0], i[:, 0], f[:, 0], o[:, 0]))
-    b, _, nh, hd = z.shape
-    return out.reshape(b, 1, nh * hd).to(x.dtype), \
+    return S.merge_heads(out[:, None]).to(x.dtype), \
         {"c": c, "n": n, "m": m, "h": h}

@@ -12,7 +12,8 @@ params wherever the rows' measured gradient gap cannot move the step
 further); and the command line on the CPU (``--device cpu``): the
 reference's line formats, the ``--fl`` path over a world of one and
 over a launcher's world of two gloo ranks, ``--ckpt`` restoring what
-the run trained, ``--production`` refused.
+the run trained, ``--production`` tracing its combo's step in a process
+of its own.
 """
 
 import os
@@ -359,9 +360,17 @@ def test_main_ckpt_restores_the_trained_params(capsys, tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_main_production_is_refused(capsys):
-    assert TRAIN.main(["--production"]) != 0
-    assert "ROADMAP.md Queue A, item 10" in capsys.readouterr().err
+def test_main_production_traces_the_step():
+    """``--production`` runs the dry run for its combo, in a process of
+    its own (the dry run starts its fake group of 256 ranks)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--production",
+         "--arch", "smollm-135m", "--shape", "decode_32k"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stdout + out.stderr[-3000:]
+    assert "OK   smollm-135m" in out.stdout
+    assert "1 ok, 0 skipped, 0 failed on mesh 16x16" in out.stdout
 
 
 def test_main_needs_a_card_unless_told_cpu():

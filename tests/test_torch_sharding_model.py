@@ -18,7 +18,10 @@ at block 128 (each leaf whose shards cut its tiles gathered, and
 counted), one rate and a batch of two, with ``achieved_rate``,
 ``apply_masks`` and ``value_and_grad`` (grads placed as the params)
 against their plain values; ``psum_aggregate`` over the client dim of a
-(2, 2) mesh on sharded grads against the whole grads'.
+(2, 2) mesh on sharded grads against the whole grads'; and C3: models
+whose 3 heads the "model" dim of 2 does not divide (GQA, MLA, xLSTM),
+their forward, loss and grads sharded on the (2, 2) mesh against the
+unsharded ones.
 """
 
 import os
@@ -115,6 +118,7 @@ import torch
 import torch.distributed as dist
 rank, world, store, out = sys.argv[1:5]
 rank, world = int(rank), int(world)
+torch.set_num_threads(1)      # four ranks on the host's cores
 dist.init_process_group("gloo", store=dist.FileStore(store, world),
                         rank=rank, world_size=world)
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
@@ -218,6 +222,59 @@ for c_i in (torch.tensor(1.0), torch.tensor(float(client == 0)),
         tuple(agg[key].placements) == tuple(sharded[key].placements)
         and torch.equal(agg[key].full_tensor(), plain[key])
         for key in whole))
+# C3: 3 heads over a "model" dim of 2 (a head and a half a rank) in
+# GQA, MLA and the xLSTM cells: the sharded forward, loss and grads on
+# the (2, 2) mesh against the unsharded ones, with rules installed as the
+# dry run installs them
+import dataclasses
+smol, mla_cfg, xl = (get_config(n).smoke_variant() for n in
+                     ("smollm-135m", "minicpm3-4b", "xlstm-125m"))
+gqa = dataclasses.replace(smol, head_dim=48)
+# (config, sequence length): 2,048 takes flash attention's query stripes
+c3 = {"gqa": (gqa, 16), "gqa_flash": (gqa, 2048),
+      "mla": (dataclasses.replace(mla_cfg, num_heads=3, num_kv_heads=3,
+                                  mla=dataclasses.replace(mla_cfg.mla,
+                                                          num_heads=3)), 16),
+      "xlstm": (dataclasses.replace(xl, d_model=96, num_heads=3,
+                                    num_kv_heads=3, head_dim=32), 16)}
+res["c3"] = {}
+for label, (cfg3, seq3) in c3.items():
+    p3 = M.init_params(cfg3, torch.Generator().manual_seed(5))
+    specs3 = SH.leaves_like(SH.param_shardings(p3, mesh), p3)
+    d3 = pruning.unflatten(p3, [
+        distribute_tensor(p, mesh, SH.placements(s, mesh),
+                          src_data_rank=None)
+        for p, s in zip(pruning.flatten(p3), specs3)])
+    tok3 = torch.randint(0, cfg3.vocab_size, (4, seq3),
+                         generator=torch.Generator().manual_seed(6))
+    dtok3 = distribute_tensor(tok3, mesh, SH.placements(
+        SH.data_pspec(tuple(tok3.shape), mesh), mesh), src_data_rank=None)
+    try:
+        with MS.use_rules(dict(MS.DEFAULT_RULES), mesh), \
+                implicit_replication():
+            logits, _ = M.forward(cfg3, d3, dtok3)
+            (loss3, _), grads3 = pruning.value_and_grad(
+                lambda p: M.loss_fn(cfg3, p, {"tokens": dtok3}), d3)
+        want_logits, _ = M.forward(cfg3, p3, tok3)
+        (want_loss3, _), want_grads3 = pruning.value_and_grad(
+            lambda p: M.loss_fn(cfg3, p, {"tokens": tok3}), p3)
+        res["c3"][label] = {
+            "cut": sum(any(isinstance(pl, Shard) for pl in q.placements)
+                       for q in pruning.flatten(d3)),
+            "logits_err": float((logits.full_tensor() - want_logits)
+                                .abs().max() / want_logits.abs().max()),
+            "loss": (float(loss3), float(want_loss3)),
+            # against the largest grad: the input gates' biases get ~1e-12
+            # (exp(i - max(., i)) cancels them), float noise either way
+            "grad_rel": max(
+                float((g.full_tensor() - w).abs().max())
+                for g, w in zip(pruning.flatten(grads3),
+                                pruning.flatten(want_grads3)))
+            / max(float(w.abs().max())
+                  for w in pruning.flatten(want_grads3)),
+        }
+    except RuntimeError as e:
+        res["c3"][label] = repr(e)
 with open(out, "wb") as f:
     pickle.dump(res, f)
 dist.barrier()
@@ -298,3 +355,25 @@ def test_psum_aggregate_on_shards(world4):
     (arrivals [1, 1], [1, 0] and [0, 0]): shard by shard, bitwise the
     aggregate of the whole grads, placed as the grads."""
     assert all(all(r["psum"]) and len(r["psum"]) == 3 for r in world4)
+
+
+@pytest.mark.parametrize("label", ["gqa", "gqa_flash", "mla", "xlstm"])
+def test_heads_the_model_dim_does_not_divide(world4, label):
+    """C3: 3 heads over a "model" dim of 2, whose shards of the heads'
+    features (the reference's specs) end in the middle of a head: GQA
+    (smollm-135m's smoke width at head_dim 48; at 2,048 tokens too, where
+    flash attention's query stripes shard the sequence over "model"), MLA
+    (minicpm3-4b's) and the mLSTM and sLSTM cells (xlstm-125m's at
+    d_model 96).  The head views replicate such shards first (DTensor
+    refuses the view), products flatten their rows through the same
+    views, and the recurrent time loops run on local batch rows.  The sharded forward
+    and loss equal the unsharded ones within 1e-5, and the grads within
+    1e-5 of the largest grad."""
+    for r in world4:
+        got = r["c3"][label]
+        assert isinstance(got, dict), got
+        assert got["cut"] > 0
+        assert got["logits_err"] <= 1e-5
+        loss, want = got["loss"]
+        assert loss == pytest.approx(want, rel=1e-5)
+        assert got["grad_rel"] <= 1e-5

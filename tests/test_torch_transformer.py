@@ -337,8 +337,9 @@ def test_loss_fn_matches_reference(model_pair, masked):
 
 def test_chunked_loss_matches_reference(model_pair, monkeypatch):
     """The streamed cross-entropy branch (threshold patched low on both
-    sides, chunks of 4 of the 15 shifted positions, then 1 by halving),
-    and _chunked_nll directly at several chunk sizes."""
+    sides, chunks of 4 of the 15 shifted positions: the reference halves
+    them to 1, the port keeps 4, 4, 4 and 3), and _chunked_nll directly
+    at several chunk sizes."""
     jp, tp = model_pair
     jcfg, tcfg = _j_cfg(), _t_cfg()
     toks = _tokens(2, 16, seed=3)
