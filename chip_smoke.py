@@ -129,8 +129,10 @@ Phases (any failure exits non-zero and prints no result line):
                rounds: falling loss, rising R^2, rerun bitwise; (b)
                smollm-135m at full width in float32 trained by the fleet
                (TransformerTask, 4 x 8 clients, sequences of 16, batch 2,
-               3 rounds): finite losses, one grouped ranking of its 10
-               leaves a round, no fused launch, the wireless model pricing
+               3 rounds; its clients run without remat, as
+               TransformerTask's always do): finite losses, one grouped
+               ranking of its 10 leaves a round, no fused launch, the
+               wireless model pricing
                32 x param_count bits, rerun bitwise, peak device memory, a
                profiled round and the generic path's time a client; (c)
                15b's model through export_from_result (its last round's
@@ -161,9 +163,10 @@ Phases (any failure exits non-zero and prints no result line):
                phase 6's smollm-135m bundle by impl="gather" beside
                "kernel": ms a decode step, logits within TOL over 8
                steps, rerun bitwise; (e) olmoe-1b-7b in float32
-               (capacity factor 8) decode vs forward within 2e-3, then
-               its bfloat16 config greedy at B = 8, timed and rerun
-               bitwise.
+               (capacity factor 8) decode vs forward within 2e-3, one
+               bfloat16 MoE FFN's input and weight grads (8 x 128
+               tokens) twice, bitwise equal, then its bfloat16 config
+               greedy at B = 8, timed and rerun bitwise.
  17. the recurrent, MLA and memory models — one config at a time at full
                width from seeded random weights in its own bfloat16, each
                freed before the next: (a) xlstm-125m, (b)
@@ -193,8 +196,11 @@ Phases (any failure exits non-zero and prints no result line):
                replay); (b) smollm-135m at full width
                (bfloat16 params from a seed) through the launcher's host
                step (Adam at lr 1e-3 after clipping), 10 steps of (8, 128)
-               TokenStream tokens: the loss falling, a rerun bitwise, ms a
-               warm step, peak memory, a profiled step; the prefill step
+               TokenStream tokens at the config's ``remat="block"``: the
+               loss falling, a rerun bitwise, ms a warm step, peak memory,
+               the same steps at ``remat="none"`` (losses within 1e-6
+               relative, its ms and peak memory), a profiled step; the
+               prefill step
                against forward's last position (1e-5), the serve step
                against decode_step (bitwise); a 2-layer float32 cut card
                vs CPU, 3 host steps each from the CPU's state (m and v
@@ -263,15 +269,23 @@ Phases (any failure exits non-zero and prints no result line):
                — (a) phase 18b's warm host step at smollm-135m's full
                width as a roofline share: ``model_flops`` of its B x S
                tokens (6 N D) over (ms x 989 TFLOP/s, the bfloat16
-               peak), beside the card's name and power limit; (b) in two
-               processes of their own (no card, ``CUDA_VISIBLE_DEVICES``
-               empty), ``python -m repro_torch.launch.dryrun --arch
-               smollm-135m --shape decode_32k`` (a fake group of 256
-               ranks, the step traced on the 16 x 16 mesh under
-               ``FakeTensorMode``) and ``--fleet`` (512 ranks, the
-               fleet engine's cell solve and gradient sum): their rows
-               printed, ``OK`` and ``0 failed`` or exit 0; fails if the
-               fake group or ``FakeTensorMode`` is missing.
+               peak), beside the card's name and power limit; (b) in four
+               processes of their own, started together with phase 20
+               (no card,
+               ``CUDA_VISIBLE_DEVICES`` empty), ``python -m
+               repro_torch.launch.dryrun --arch smollm-135m --shape
+               decode_32k`` and ``--arch qwen2-7b --shape train_4k`` (a
+               fake group of 256 ranks, the step traced on the 16 x 16
+               mesh under ``FakeTensorMode``), ``--fleet`` (512 ranks,
+               the fleet engine's cell solve and gradient sum) and
+               ``python -m repro_torch.launch.diagnose --arch qwen2-7b
+               --shape decode_32k``: their output printed, ``OK`` and
+               ``0 failed`` or exit 0; fails if the fake group or
+               ``FakeTensorMode`` is missing, if the qwen2-7b decode's
+               peak exceeds 8 GiB a chip, an all-gather is among its
+               biggest tensors or a stacked cache holds more than a data
+               shard's 8 rows, or if the train step's peak is not under
+               70 GiB.
                ``--phase21`` runs phases 1 and 21b.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
@@ -3267,10 +3281,41 @@ def run_gather(card: str) -> dict:
     return counts
 
 
+def moe_backward_bitwise(cfg, card: str) -> None:
+    """One MoE FFN of ``cfg`` at full width (its bfloat16 experts and
+    float32 router from a seed) on 8 x 128 tokens: the gradients of a
+    loss of its output and aux loss with respect to the input and every
+    weight, twice, bitwise equal.  The dispatch gathers each token's up
+    to top_k expert slots from its one row, so the gather's backward
+    sums them with an accumulating ``index_put``."""
+    import torch
+    from repro_torch.core import pruning
+    from repro_torch.models import moe as MOE
+    spec = cfg.moe_spec()
+    gen = torch.Generator(device=CARD).manual_seed(DEC_SEED + 8)
+    p = MOE.init_moe(gen, cfg.d_model, spec, torch.bfloat16)
+    x = torch.randn((8, 128, cfg.d_model), generator=gen,
+                    device=CARD).to(torch.bfloat16)
+    leaves = [x] + pruning.flatten(p)
+    grads = []
+    for _ in range(2):
+        ins = [a.detach().requires_grad_() for a in leaves]
+        y, aux = MOE.moe_ffn(pruning.unflatten(p, ins[1:]), spec, ins[0])
+        loss = torch.mean(y.to(torch.float32) ** 2) + aux
+        grads.append(torch.autograd.grad(loss, ins))
+    same = all(torch.equal(a, b) for a, b in zip(*grads))
+    log(f"  {cfg.name} MoE FFN backward (8 x 128 tokens, {spec.num_experts} "
+        f"experts top-{spec.top_k}), run twice: input and weight grads "
+        f"bitwise {'equal' if same else 'DIFFERENT'} [{card}]")
+    if not same:
+        raise AssertionError("MoE backward rerun differs")
+
+
 def run_moe(card: str) -> None:
     """16e: olmoe-1b-7b at full width: float32 (capacity factor 8, the
-    reference test's pin) teacher-forced decode vs forward; then its
-    bfloat16 config decoding greedily, timed, rerun bitwise."""
+    reference test's pin) teacher-forced decode vs forward; one MoE FFN's
+    backward rerun bitwise (``moe_backward_bitwise``); then its bfloat16
+    config decoding greedily, timed, rerun bitwise."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -3292,6 +3337,8 @@ def run_moe(card: str) -> None:
     if not torch.isfinite(aux):
         raise AssertionError("non-finite MoE auxiliary loss")
     del params, full, dec
+    torch.cuda.empty_cache()
+    moe_backward_bitwise(base, card)
     torch.cuda.empty_cache()
     params = model_params(base, DEC_SEED + 7)
     timed_greedy(base, params, "olmoe-1b-7b bfloat16 decode", card)
@@ -3766,10 +3813,46 @@ def host_card_vs_cpu(cfg, card: str) -> None:
                              f"element-steps held, under 90%")
 
 
+def fmt_peak(base: int) -> str:
+    """The device's peak allocated memory since the last reset: absolute
+    (``max_memory_allocated``) and over ``base``, the bytes allocated
+    before the run (what the run itself added: its params, optimizer
+    state, gradients and activations)."""
+    import torch
+    top = torch.cuda.max_memory_allocated()
+    return (f"{top / 2**30:.2f} GiB ({(top - base) / 2**30:.2f} GiB over "
+            f"the {base / 2**30:.2f} GiB before the run)")
+
+
+def remat_compare(cfg, batches, block_losses: list, block_ms: float,
+                  block_peak: str, card: str) -> None:
+    """18b's host step without rematerialization: ``cfg``'s run (the
+    config's ``remat="block"``: each super-block's forward recomputed in
+    the backward; its losses, warm ms and ``fmt_peak`` given) against
+    ``remat="none"`` from the same params and batches.  Losses within
+    1e-6 relative; each variant's warm ms and peak device memory
+    printed."""
+    import numpy as np
+    import torch
+    none = cfg.replace(remat="none")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, losses, walls = host_run(none, model_params(none, P18_SEED), batches)
+    peak = fmt_peak(base)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, block_losses))
+    log(f"  remat: \"block\" {block_ms:.2f} ms a warm step, peak "
+        f"{block_peak}; \"none\" {float(np.median(walls[1:])):.2f} "
+        f"ms, peak {peak}; losses rel {rel:.3e} (tol 1e-6) [{card}]")
+    if rel > 1e-6:
+        raise AssertionError(f"remat block vs none: losses rel {rel:.3e}")
+
+
 def run_host_full(card: str) -> float:
-    """18b: smollm-135m at full width (bfloat16 params) through the
-    launcher's host step: 10 steps of (8, 128) from seeded params, the
-    loss falling and a rerun bitwise equal; the warm step's median ms,
+    """18b: smollm-135m at full width (bfloat16 params, ``remat="block"``)
+    through the launcher's host step: 10 steps of (8, 128) from seeded
+    params, the loss falling and a rerun bitwise equal; the same steps at
+    ``remat="none"`` (``remat_compare``); the warm step's median ms,
     peak memory and a profiled step's busy share; the prefill step's
     logits against ``forward``'s last position within 1e-5 and the serve
     step against ``decode_step`` bitwise; then the depth cut card vs
@@ -3785,12 +3868,13 @@ def run_host_full(card: str) -> float:
     batches = host_batches(cfg.vocab_size, HOST_BATCH, HOST_SEQ, HOST_STEPS,
                            CARD)
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     start = model_params(cfg, P18_SEED)
     log(f"  smollm-135m: {M.param_count(start)} params {cfg.param_dtype} "
         f"({tree_bytes(start) / 1e9:.3f} GB), Adam state float32")
     params, losses, walls = host_run(cfg, start, batches)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = fmt_peak(base)
     again, losses2, walls2 = host_run(cfg, model_params(cfg, P18_SEED),
                                       batches)
     med = float(np.median(walls[1:] + walls2[1:]))
@@ -3798,13 +3882,14 @@ def run_host_full(card: str) -> float:
         f"S = {HOST_SEQ}: "
         f"losses {[round(x, 4) for x in losses]}; {med:.2f} ms a warm step "
         f"(median of {len(walls) + len(walls2) - 2}; first {walls[0]:.1f} "
-        f"ms), peak device memory {peak:.2f} GiB [{card}]")
+        f"ms), peak device memory {peak} [{card}]")
     if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"full-width host losses do not fall: {losses}")
     if losses2 != losses or not trees_equal(again, params):
         raise AssertionError("full-width host step: rerun differs")
     log("  host step: rerun losses and params bitwise equal")
     del again
+    remat_compare(cfg, batches, losses, med, peak, card)
     opt = optimizers.adam()
     state, step = opt.init(params), TRAIN.make_host_step(cfg, opt, FULL_LR)
     profile_device(lambda: step(params, state, batches[0]), "host step",
@@ -4081,6 +4166,7 @@ P19_SEED = P18_SEED + 10
 TP_RHO, TP_K, TP_ARRIVALS = [0.3, 0.5], [40.0, 30.0], [1.0, 1.0]
 TP_SMOKE_BATCH, TP_SMOKE_SEQ, TP_SMOKE_STEPS, TP_SMOKE_LR = 2, 32, 2, 0.5
 TP_BLOCKS, TP_TIMEOUT = (16, 128), 300
+TP_RULES_SEQ = 2048
 TP_BATCH, TP_SEQ, TP_STEPS, TP_LR, TP_BLOCK = 8, 128, 3, 1e-2, 128
 TP_FULL_TIMEOUT = 600
 
@@ -4107,7 +4193,8 @@ from repro_torch.models import model as M
 MESH.gloo_cuda_all_gather()
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
-cfg = get_config("qwen2-7b").smoke_variant()
+# rematerialized as the full config is: checkpointed DTensor steps
+cfg = get_config("qwen2-7b").smoke_variant().replace(remat="block")
 gen = torch.Generator().manual_seed(spec["seed"])
 params = M.init_params(cfg, gen)
 for name in ("wq", "wk", "wv"):    # the init leaves the qkv biases 0
@@ -4166,6 +4253,29 @@ for block in spec["blocks"]:
         "rel": worst, "masks_equal": masks_equal}
     torch.save([a.to_local().cpu() for a in pruning.flatten(p)],
                f"{out}/rank{rank}_block{block}.pt")
+# the loss and grads under the sharding rules at 2,048 tokens (flash
+# attention's query stripes over "model"), against the unsharded ones:
+# the backward, each repeat's recompute in it, runs on autograd's device
+# thread, which holds none of the forward's thread-local rules
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.models import sharding as MS
+long = torch.as_tensor(TokenStream(cfg.vocab_size, seed=spec["seed"] + 1)
+                       .sample(2, spec["rules_seq"]), dtype=torch.int64,
+                       device=dev)
+dlong = distribute_tensor(long, mesh, SH.placements(
+    SH.data_pspec(tuple(long.shape), mesh), mesh), src_data_rank=None)
+with MS.use_rules(dict(MS.DEFAULT_RULES), mesh), implicit_replication():
+    stripes = MS.axis_size("q_stripes")
+    (got, _), grads = pruning.value_and_grad(
+        lambda p: M.loss_fn(cfg, p, {"tokens": dlong}), placed)
+(want, _), want_grads = pruning.value_and_grad(
+    lambda p: M.loss_fn(cfg, p, {"tokens": long}), params)
+want_grads = pruning.flatten(want_grads)
+res["rules"] = {
+    "stripes": stripes, "loss": [float(got), float(want)],
+    "rel": max(float((g.full_tensor() - w).abs().max())
+               for g, w in zip(pruning.flatten(grads), want_grads))
+    / max(float(w.abs().max()) for w in want_grads)}
 with open(f"{out}/rank{rank}.json", "w") as f:
     json.dump(res, f)
 dist.barrier()
@@ -4177,7 +4287,8 @@ def run_tp_smoke(card: str, floor_ms: float) -> tuple[int, dict]:
     """19a: the FL step with ``tp_shard_params=True`` on a ("data" 2,
     "model" 2) mesh of four ranks sharing the card over gloo (four
     processes, a FileStore, each with a timeout) at qwen2-7b's smoke
-    width (float32, qkv biases), rho [0.3, 0.5], k [40, 30], arrivals
+    width (float32, qkv biases, ``remat="block"`` as the full config:
+    each repeat checkpointed on DTensors), rho [0.3, 0.5], k [40, 30], arrivals
     [1, 1], 2 steps at block 16 and at block 128: each rank's local
     shards within 1e-5 of the slices of the unsharded step's params
     (``tp_shard_params=False`` on the same mesh), masks of the sharded
@@ -4187,14 +4298,19 @@ def run_tp_smoke(card: str, floor_ms: float) -> tuple[int, dict]:
     equal on every rank and the two ranks of each "model" coordinate
     holding bitwise equal shards; then the kernel on rank (0, 0)'s local
     shards of the start params against its plain version
-    (``norms_regime``).  Returns the ranks' tile-norm launches and the
-    block-16 regime's figures."""
+    (``norms_regime``).  Also the loss and grads at 2 x 2,048 tokens under
+    the sharding rules (flash attention's 2 query stripes over "model")
+    within 1e-5 of the unsharded ones: the backward runs on autograd's
+    device thread, and each repeat's recompute there keeps the forward's
+    rules.  Returns the ranks' tile-norm launches and the block-16
+    regime's figures."""
     import os
     import tempfile
     import torch
     spec = {"seed": P19_SEED, "batch": TP_SMOKE_BATCH, "seq": TP_SMOKE_SEQ,
             "steps": TP_SMOKE_STEPS, "lr": TP_SMOKE_LR, "rho": TP_RHO,
-            "k": TP_K, "arrivals": TP_ARRIVALS, "blocks": list(TP_BLOCKS)}
+            "k": TP_K, "arrivals": TP_ARRIVALS, "blocks": list(TP_BLOCKS),
+            "rules_seq": TP_RULES_SEQ}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4256,6 +4372,17 @@ def run_tp_smoke(card: str, floor_ms: float) -> tuple[int, dict]:
             f"tile-norm launches {[g['launches'] for g in got]} "
             f"({TP_SMOKE_STEPS} steps), leaves gathered {gathers}; the two "
             f"ranks of each model coordinate bitwise equal [{card}]")
+    rules = [x["rules"] for x in ranks]
+    worst = max(g["rel"] for g in rules)
+    loss, want = rules[0]["loss"]
+    log(f"  under the sharding rules, 2 x {TP_RULES_SEQ} tokens, "
+        f"{rules[0]['stripes']} query stripes, backward on autograd's device "
+        f"thread: loss {loss:.6f} vs unsharded {want:.6f}, grads rel "
+        f"{worst:.3e} of the largest (tol 1e-5) [{card}]")
+    if any(g["stripes"] != 2 for g in rules) or worst > 1e-5 or \
+            any(abs(g["loss"][0] - g["loss"][1]) > 1e-5 * abs(g["loss"][1])
+                for g in rules):
+        raise AssertionError(f"19a under the sharding rules: {rules}")
     log(f"  four ranks over gloo ({wall:.1f} s with start-up)")
     from repro_torch.core import pruning
     regimes = {}
@@ -4991,7 +5118,7 @@ def run_fleet_mesh_full(card: str) -> None:
 # Phase 21: the dry run and the roofline
 # ---------------------------------------------------------------------------
 
-DRYRUN_TIMEOUT = 240
+DRYRUN_TIMEOUT = 300
 
 
 def host_roofline_share(ms: float, card: str) -> None:
@@ -5013,11 +5140,52 @@ def host_roofline_share(ms: float, card: str) -> None:
         f"[{card}]")
 
 
-def run_dryruns() -> None:
-    """21b: the dry run of smollm-135m decode_32k and the fleet dry run,
-    each in a process of its own with no card, started together; their
-    rows printed.  Fails unless both exit 0 (and the combo prints OK and
-    0 failed), or if the fake group or ``FakeTensorMode`` is missing."""
+# 21b's gates on qwen2-7b's production-mesh steps (16 x 16, a chip's
+# figures): the decode_32k step's peak (live + arguments), and the
+# train_4k step's (an H100 holds 80 GB; rematerialization and the local
+# decode put them at ~23 and ~5.3 GiB)
+DECODE_PEAK_GIB, TRAIN_PEAK_GIB = 8.0, 70.0
+DECODE_ROWS = 128 // 16            # decode_32k's batch rows a "data" shard
+
+
+def decode_gates(out: str) -> None:
+    """21b's gates on ``diagnose``'s qwen2-7b decode_32k printout: the
+    peak (live + arguments) at most ``DECODE_PEAK_GIB``, no all-gather
+    among the biggest local tensors (a gathered cache: each rank attends
+    and writes its own rows and slots), and every stacked cache
+    ``model._stack`` returns holding only a data shard's rows."""
+    import re
+    peak = re.search(r"= ([0-9.]+) GiB, \d+ local ops", out)
+    if peak is None or float(peak.group(1)) > DECODE_PEAK_GIB:
+        raise AssertionError(f"qwen2-7b decode_32k: peak "
+                             f"{peak and peak.group(1)} GiB, over "
+                             f"{DECODE_PEAK_GIB}")
+    big = out.split("-- biggest single local tensors")[1].split(
+        "-- collectives")[0]
+    if "all_gather" in big:
+        raise AssertionError("qwen2-7b decode_32k: a cache-sized all-gather")
+    for dims in re.findall(r"stack +\w+\[([0-9x]+)\] in model\._stack", big):
+        if int(dims.split("x")[1]) != DECODE_ROWS:
+            raise AssertionError(f"qwen2-7b decode_32k: a stacked cache of "
+                                 f"{dims}, not {DECODE_ROWS} rows a chip")
+
+
+def train_gate(out: str) -> None:
+    """21b's gate on the qwen2-7b train_4k row: its peak (``hbm=``) under
+    ``TRAIN_PEAK_GIB``."""
+    import re
+    peak = re.search(r"OK   qwen2-7b .*hbm= *([0-9.]+)GiB", out)
+    if peak is None or float(peak.group(1)) >= TRAIN_PEAK_GIB:
+        raise AssertionError(f"qwen2-7b train_4k: peak "
+                             f"{peak and peak.group(1)} GiB, not under "
+                             f"{TRAIN_PEAK_GIB}")
+
+
+def start_dryruns() -> dict:
+    """21b's processes, started together, each with no card: the dry runs
+    of smollm-135m decode_32k and qwen2-7b train_4k, the fleet dry run
+    and ``diagnose`` of qwen2-7b decode_32k.  Fails if the fake group or
+    ``FakeTensorMode`` is missing.  ``finish_dryruns`` reads them."""
     import os
     try:
         from torch._subclasses.fake_tensor import FakeTensorMode  # noqa
@@ -5031,22 +5199,40 @@ def run_dryruns() -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     env.pop("WORLD_SIZE", None)
-    runs = {"combo": ["--arch", "smollm-135m", "--shape", "decode_32k"],
-            "fleet": ["--fleet"]}
+    dryrun = ["-m", "repro_torch.launch.dryrun"]
+    runs = {"combo": dryrun + ["--arch", "smollm-135m", "--shape",
+                               "decode_32k"],
+            "train": dryrun + ["--arch", "qwen2-7b", "--shape", "train_4k"],
+            "decode": ["-m", "repro_torch.launch.diagnose", "--arch",
+                       "qwen2-7b", "--shape", "decode_32k"],
+            "fleet": dryrun + ["--fleet"]}
     t0 = time.perf_counter()
     procs = {what: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        [sys.executable, *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=str(ROOT)) for what, args in runs.items()}
+    return {"runs": runs, "procs": procs, "t0": t0}
+
+
+def stop_dryruns(started: dict) -> None:
+    """Kill whichever of ``start_dryruns``' processes still run."""
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def finish_dryruns(started: dict) -> None:
+    """21b: the output of ``start_dryruns``' processes printed.  Fails
+    unless all exit 0 (the combos print OK and 0 failed), or if qwen2-7b's
+    steps miss ``decode_gates`` or ``train_gate``."""
+    runs, procs = started["runs"], started["procs"]
     outs = {}
     try:
         for what, proc in procs.items():
             outs[what] = proc.communicate(timeout=DRYRUN_TIMEOUT)
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+        stop_dryruns(started)
     for what, (out, err) in outs.items():
         for line in out.splitlines():
             if line.strip():
@@ -5054,12 +5240,18 @@ def run_dryruns() -> None:
         if procs[what].returncode != 0:
             raise AssertionError(f"dry run {runs[what]} exited "
                                  f"{procs[what].returncode}: {err[-3000:]}")
-    if "OK   smollm-135m" not in outs["combo"][0] \
-            or "1 ok, 0 skipped, 0 failed" not in outs["combo"][0]:
-        raise AssertionError("the smollm-135m decode_32k dry run did not "
-                             "print OK and 0 failed")
-    log(f"  both dry runs in {time.perf_counter() - t0:.1f} s (wall, run "
-        f"together)")
+    for what in ("combo", "train"):
+        if "OK   " not in outs[what][0] \
+                or "1 ok, 0 skipped, 0 failed" not in outs[what][0]:
+            raise AssertionError(f"the dry run {runs[what]} did not print "
+                                 f"OK and 0 failed")
+    decode_gates(outs["decode"][0])
+    train_gate(outs["train"][0])
+    log(f"  qwen2-7b on 16 x 16: decode_32k peak <= {DECODE_PEAK_GIB} GiB "
+        f"with no all-gather of a cache and {DECODE_ROWS} cache rows a "
+        f"chip; train_4k peak < {TRAIN_PEAK_GIB} GiB")
+    log(f"  the four dry runs done {time.perf_counter() - started['t0']:.1f}"
+        f" s after their start (wall, run together)")
 
 
 def main(argv: list) -> int:
@@ -5096,7 +5288,7 @@ def main(argv: list) -> int:
 
     if only == "--phase21":
         phase("[21b] the dry runs")
-        run_dryruns()
+        finish_dryruns(start_dryruns())
         return 0
 
     phase("[2] build")
@@ -5235,19 +5427,24 @@ def main(argv: list) -> int:
     run_tp_full(card)
 
     phase("[20] the fleet engine on a (cells, data) mesh")
-    phase("  [20a] four ranks sharing the card, the slice")
-    mesh_launches = run_fleet_mesh_smoke(card)
-    for row in rows:
-        row["fleet_mesh_launches"] = mesh_launches[row["name"]]
-    phase("  [20b] a million clients over four cards")
-    run_fleet_mesh_full(card)
-    rows += serve_rows
+    # 21b's dry runs need no card: they run beside phase 20
+    dryruns = start_dryruns()
+    try:
+        phase("  [20a] four ranks sharing the card, the slice")
+        mesh_launches = run_fleet_mesh_smoke(card)
+        for row in rows:
+            row["fleet_mesh_launches"] = mesh_launches[row["name"]]
+        phase("  [20b] a million clients over four cards")
+        run_fleet_mesh_full(card)
+        rows += serve_rows
 
-    phase("[21] the dry run and the roofline")
-    phase("  [21a] 18b's host step as a roofline share")
-    host_roofline_share(p18["host_ms"], card)
-    phase("  [21b] the dry runs, on a fake group")
-    run_dryruns()
+        phase("[21] the dry run and the roofline")
+        phase("  [21a] 18b's host step as a roofline share")
+        host_roofline_share(p18["host_ms"], card)
+        phase("  [21b] the dry runs, on a fake group (started with phase 20)")
+        finish_dryruns(dryruns)
+    finally:
+        stop_dryruns(dryruns)
 
     phase("[end]")
     print(json.dumps({"kernels": rows}))

@@ -5,11 +5,12 @@ repeats a super-block of sub-blocks ``repeats`` times, and the stage's
 parameters carry a leading ``repeats`` dim on every leaf.  The parameter
 dtype is a name (``"bfloat16"``), mapped to a torch dtype by ``pdtype``.
 
-The port carries every field of the reference's config but ``remat``
-(the reference's ``jax.checkpoint`` policy; the port's forward keeps its
-activations): widths, the parameter and compute dtypes, the window
-fields, the MoE and MLA specs, the recurrent widths, the stub modality
-frontend's encoder and memory fields, and the smoke-size reduction.
+The port carries every field of the reference's config: widths, the
+parameter and compute dtypes, the rematerialization policy ``remat``
+(``"block"``: each super-block's forward is recomputed in the backward,
+``models.model``), the window fields, the MoE and MLA specs, the
+recurrent widths, the stub modality frontend's encoder and memory
+fields, and the smoke-size reduction.
 ``AttnSpec`` and ``MLASpec`` live here too: the reference keeps them in
 ``models/attention.py``.
 """
@@ -129,6 +130,7 @@ class ArchConfig:
 
     param_dtype: str = "float32"      # storage; the serving path runs float32
     compute_dtype: str = "float32"    # activations of the forward and decode
+    remat: str = "block"              # none | block: recompute super-blocks
     moe_capacity_factor: float = 1.25
 
     @property
@@ -196,7 +198,7 @@ class ArchConfig:
         d_ff <= 256, vocab <= 512, <= 4 experts of top-k <= 2 and width
         <= 128, <= 2 encoder layers, <= 16 memory tokens, an RG-LRU at
         most d_model wide, MLA ranks 64 / 32 with 16 + 16 query dims,
-        float32 parameters and compute."""
+        float32 parameters and compute, no rematerialization."""
         small_stages = []
         for st in self.stages[:2]:
             seen, blocks = set(), []
@@ -217,7 +219,7 @@ class ArchConfig:
             encoder_layers=min(self.encoder_layers, 2),
             num_memory_tokens=min(self.num_memory_tokens, 16),
             rnn_width=min(self.rnn_width_, d_model),
-            param_dtype="float32", compute_dtype="float32")
+            param_dtype="float32", compute_dtype="float32", remat="none")
         if self.moe is not None:
             kw["moe"] = dataclasses.replace(
                 self.moe, num_experts=min(self.moe.num_experts, 4),

@@ -35,6 +35,8 @@ learn its output's shape.
                         reduce-scatter     R*(g-1)     (operand = R*g)
                         all-to-all         R*(g-1)/g
                         collective-permute R
+  ops              — the local ops dispatched (views included): what a
+                     step's trace, and its launches, grow with.
   memory           — arguments and outputs are their local shards'
                      bytes; the peak is the largest sum of live local
                      storages over the trace (each storage counted once
@@ -115,9 +117,11 @@ class Cost:
     collective_bytes: float = 0.0
     collective_counts: dict = dataclasses.field(default_factory=dict)
     collective_op_bytes: dict = dataclasses.field(default_factory=dict)
+    ops: int = 0
 
     def add(self, other: "Cost") -> None:
         self.flops += other.flops
+        self.ops += other.ops
         self.hbm_bytes += other.hbm_bytes
         self.collective_bytes += other.collective_bytes
         for k, v in other.collective_counts.items():
@@ -253,7 +257,7 @@ class CostMode(TorchDispatchMode):
                 if isinstance(o, torch.Tensor)]
         packet = func.overloadpacket
         name = packet.__name__
-        cost = Cost()
+        cost = Cost(ops=1)
         kind = _KINDS.get(name)
         if kind is not None:
             # R: the result's bytes (an op that returns only its work

@@ -25,19 +25,27 @@ __all__ = ["compile_combo", "breakdown", "main"]
 def compile_combo(arch: str, shape_name: str, multi_pod: bool = False,
                   fl: bool = False, rules: dict | None = None):
     """Trace one combo's step (the reference compiles it): (the
-    ``CostMode`` that counted it, by model function, and the mesh)."""
+    ``CostMode`` that counted it, by model function, the mesh, and the
+    step's argument bytes a chip)."""
     spec, mesh, use = DR.combo(get_config(arch), INPUT_SHAPES[shape_name],
                                multi_pod, fl, rules)
-    counted, _, _ = DR.trace(spec, mesh, use)
-    return counted, mesh
+    counted, arg_bytes, _ = DR.trace(spec, mesh, use)
+    return counted, mesh, arg_bytes
 
 
-def breakdown(counted: COST.CostMode, top: int = 15) -> None:
+def breakdown(counted: COST.CostMode, top: int = 15,
+              arg_bytes: float = 0.0) -> None:
+    """Print the totals (the peak as the dry run reports it: live bytes
+    plus the arguments), the top model functions, the biggest local
+    tensors and the collectives."""
     total = counted.cost
     print(f"\nTOTAL per chip: {total.flops/1e12:.2f} TF, "
           f"{total.hbm_bytes/1e9:.1f} GB HBM, "
           f"{total.collective_bytes/1e9:.2f} GB links, "
-          f"peak {counted.peak_bytes/2**30:.2f} GiB live")
+          f"peak {counted.peak_bytes/2**30:.2f} GiB live + "
+          f"{arg_bytes/2**30:.2f} GiB arguments = "
+          f"{(counted.peak_bytes + arg_bytes)/2**30:.2f} GiB, "
+          f"{total.ops} local ops")
     print(f"\n-- top {top} model functions by HBM bytes "
           f"(summed over every call in the step) --")
     rows = sorted(((c.hbm_bytes, c.flops, c.collective_bytes, n)
@@ -68,9 +76,9 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
 
-    counted, _mesh = compile_combo(args.arch, args.shape,
-                                   multi_pod=args.multi_pod, fl=args.fl)
-    breakdown(counted, args.top)
+    counted, _mesh, arg_bytes = compile_combo(
+        args.arch, args.shape, multi_pod=args.multi_pod, fl=args.fl)
+    breakdown(counted, args.top, arg_bytes)
     return 0
 
 

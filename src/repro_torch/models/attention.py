@@ -18,16 +18,22 @@ float32 for the scores and the weighted sum, a mask enters as an additive
 ``NEG_INF`` bias before the softmax, and the output is cast back to the
 activations' dtype before ``wo``.  Sequences of ``FLASH_THRESHOLD`` tokens
 or more take ``flash_attention``, the reference's online-softmax double
-loop over chunks, here as plain differentiable torch on one device (the
-port's CUDA ``flash_prefill`` is forward-only, so training does not use
-it).  Every function is functional, so ``torch.func`` transforms it.
+loop over chunks, here as plain torch with a recomputing backward
+(``_Flash``; the port's CUDA ``flash_prefill`` is forward-only, so
+training does not use it).  On DTensors the attention runs on each
+rank's local shards (``sharding.attention_local``,
+``sharding.stripes_local``) and a decode cache's new entries go into
+each rank's own rows and slots (``sharding.write_slots``).  Every function
+is functional, so ``torch.func`` transforms it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import AttnSpec, MLASpec
 from repro_torch.models import layers as L
@@ -79,12 +85,28 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, 0.0, NEG_INF)
 
 
+def _gqa_partial(q, k, v, mask, scale: float):
+    """``attend`` on local shards, unnormalized: (acc, m, l) as
+    ``sharding.attention_local`` takes them."""
+    scores = _gqa_scores(q, k, scale)
+    if mask is not None:
+        scores = scores + _mask_bias(mask)
+    m = torch.amax(scores, dim=-1)
+    p = torch.exp(scores - m[..., None])
+    return _gqa_out(p, v), m, torch.sum(p, dim=-1)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """Masked GQA attention; ``mask`` broadcasts to (B,S,H,T).  DTensor
-    inputs are replicated first: DTensor cannot flatten the einsums'
-    (batch, head) dims with the head dim sharded."""
-    q, k, v = S.replicate(q), S.replicate(k), S.replicate(v)
+    inputs go through ``sharding.attention_local``: each rank attends its
+    own batch rows and kv heads or key slice, as ``shard_map`` would
+    (DTensor's own propagation cannot flatten the einsums' (batch, head)
+    dims with the head dim sharded, and would gather the rest)."""
+    if any(isinstance(x, DTensor) for x in (q, k, v, mask)):
+        return S.attention_local(
+            lambda q, k, v, mask: _gqa_partial(q, k, v, mask, scale),
+            (q,), (k, v), mask)
     scores = _gqa_scores(q, k, scale)
     if mask is not None:
         scores = scores + _mask_bias(mask)
@@ -113,9 +135,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v: (B,T,Hkv,hd); self-attention positions (query i at i, keys at
     0..T-1).  A chunk size that does not divide S is halved until it
     does; a ragged T is padded to a chunk multiple and the padding
-    masked.  Autograd keeps each chunk pair's probabilities for the
-    backward (the reference recomputes them under ``jax.checkpoint``:
-    the same values, more memory here).
+    masked.  The backward (``_Flash``) keeps q, k, v, the output and the
+    log-sum-exp of each query and recomputes each chunk pair's
+    probabilities, as the reference's ``jax.checkpoint``s of its query
+    body and key step do: the memory stays O(S).
 
     Context parallelism: the query sequence splits into P contiguous
     stripes, P = ``axis_size("q_stripes")`` (1 without sharding rules),
@@ -140,8 +163,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t_valid = t
     if t % kv_chunk:
         pad = kv_chunk - t % kv_chunk
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k = S.pad(k, (0, 0, 0, 0, 0, pad))
+        v = S.pad(v, (0, 0, 0, 0, 0, pad))
         t += pad
     nq, nk = stripe // q_chunk, t // kv_chunk
     # (B, P, nq, qc, Hkv, G, hd): the query loop runs over nq
@@ -151,45 +174,121 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qc = S.constrain(qc, "batch", "q_stripes", None, None, "kv", None, None)
     kc = S.constrain(kc, "batch", None, None, "kv", None)
     vc = S.constrain(vc, "batch", None, None, "kv", None)
-    dev = q.device
-    stripe_base = (torch.arange(p_stripes, device=dev) * stripe)[:, None]
-    outs = []
-    for qi in range(nq):
-        q_blk = qc[:, :, qi]                                 # (B,P,qc,...)
-        qpos = stripe_base + qi * q_chunk + torch.arange(q_chunk,
-                                                         device=dev)
-        m = S.constrain(torch.full((b, p_stripes, q_chunk, hkv, g), NEG_INF,
-                                   dtype=torch.float32, device=dev),
-                        "batch", "q_stripes", None, "kv", None)
-        l = S.constrain(torch.zeros((b, p_stripes, q_chunk, hkv, g),
-                                    dtype=torch.float32, device=dev),
-                        "batch", "q_stripes", None, "kv", None)
-        acc = S.constrain(torch.zeros((b, p_stripes, q_chunk, hkv, g, vd),
-                                      dtype=torch.float32, device=dev),
-                          "batch", "q_stripes", None, "kv", None, None)
-        for kj in range(nk):
-            scores = torch.einsum("bpqkgd,btkd->bpqkgt", q_blk,
-                                  kc[:, kj]) * scale
-            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
-            valid = (kpos < t_valid)[None, None, :].expand(
-                p_stripes, q_chunk, kv_chunk)
-            if causal:
-                valid = valid & (kpos[None, None, :] <= qpos[..., None])
-            if window is not None:
-                valid = valid & (kpos[None, None, :]
-                                 > qpos[..., None] - window)
-            scores = torch.where(valid[None, :, :, None, None, :], scores,
-                                 NEG_INF)
-            m_new = torch.maximum(m, torch.amax(scores, dim=-1))
-            p = torch.exp(scores - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + torch.sum(p, dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bpqkgt,btkd->bpqkgd", p, vc[:, kj])
-            m = m_new
-        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    plan = _FlashPlan(scale, causal, window, q_chunk, kv_chunk, t_valid)
+    out = S.stripes_local(
+        lambda qc, kc, vc, stripes: _Flash.apply(qc, kc, vc,
+                                                 stripes * stripe, plan)[0],
+        qc, kc, vc)
     # (B, P, nq, qc, Hkv, G, vd) -> (B, S, H, vd)
-    return S.view(torch.stack(outs, dim=2), (b, s, h, vd))
+    return S.view(out, (b, s, h, vd))
+
+
+@dataclasses.dataclass(frozen=True)
+class _FlashPlan:
+    scale: float
+    causal: bool
+    window: Optional[int]
+    q_chunk: int
+    kv_chunk: int
+    t_valid: int
+
+    def scores(self, q_blk, k_blk, stripe_base, qi: int, kj: int
+               ) -> torch.Tensor:
+        """Chunk pair (qi, kj)'s scaled scores (B, P, qc, Hkv, G, kc) for
+        stripes starting at ``stripe_base`` (P,), masked to ``NEG_INF``:
+        padded keys, and keys the causal order or the window hides."""
+        dev = q_blk.device
+        p_stripes = q_blk.shape[1]
+        qpos = stripe_base[:, None] + qi * self.q_chunk \
+            + torch.arange(self.q_chunk, device=dev)
+        kpos = kj * self.kv_chunk + torch.arange(self.kv_chunk, device=dev)
+        valid = (kpos < self.t_valid)[None, None, :].expand(
+            p_stripes, self.q_chunk, self.kv_chunk)
+        if self.causal:
+            valid = valid & (kpos[None, None, :] <= qpos[..., None])
+        if self.window is not None:
+            valid = valid & (kpos[None, None, :]
+                             > qpos[..., None] - self.window)
+        scores = torch.einsum("bpqkgd,btkd->bpqkgt", q_blk, k_blk) \
+            * self.scale
+        return torch.where(valid[None, :, :, None, None, :], scores,
+                           NEG_INF)
+
+
+class _Flash(torch.autograd.Function):
+    """The chunked online softmax of ``flash_attention`` on the chunked
+    float32 q (B, P, nq, qc, Hkv, G, hd), k and v (B, nk, kc, Hkv, d), the
+    P stripes starting at positions ``stripe_base`` (P,).
+    The backward is flash attention's: it keeps q, k, v, the output and
+    each query's log-sum-exp, and recomputes each chunk pair's
+    probabilities from them, so no (S x T) tensor lives at once (the
+    reference's ``jax.checkpoint`` of its query body and key step gives
+    the same recompute; nested non-reentrant checkpoints here would keep
+    each region's inputs alive for an enclosing block checkpoint).  It
+    runs on plain tensors (a sharded step's local shards,
+    ``sharding.stripes_local``); ``torch.func`` transforms it (a
+    generated vmap rule).  Returns (out, lse), the log-sum-exp not
+    differentiable."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(qc, kc, vc, stripe_base, plan):
+        pv = "bpqkgt,btkd->bpqkgd"
+        outs, lses = [], []
+        for qi in range(qc.shape[2]):
+            q_blk = qc[:, :, qi]
+            for kj in range(kc.shape[1]):
+                scores = plan.scores(q_blk, kc[:, kj], stripe_base, qi, kj)
+                m_blk = torch.amax(scores, dim=-1)
+                if kj == 0:
+                    # what a start from (NEG_INF, 0, 0) gives
+                    m = m_blk
+                    p = torch.exp(scores - m[..., None])
+                    l = torch.sum(p, dim=-1)
+                    acc = torch.einsum(pv, p, vc[:, kj])
+                    continue
+                m_new = torch.maximum(m, m_blk)
+                p = torch.exp(scores - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + torch.sum(p, dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(pv, p, vc[:, kj])
+                m = m_new
+            l = torch.clamp_min(l, 1e-30)
+            outs.append(acc / l[..., None])
+            lses.append(m + torch.log(l))
+        return torch.stack(outs, dim=2), torch.stack(lses, dim=2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        qc, kc, vc, stripe_base, ctx.plan = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(qc, kc, vc, stripe_base, *output)
+
+    @staticmethod
+    def backward(ctx, dout, _):
+        qc, kc, vc, stripe_base, out, lse = ctx.saved_tensors
+        plan = ctx.plan
+        delta = torch.sum(dout * out, dim=-1)          # (B, P, nq, qc, ...)
+        dq, dk, dv = [], [None] * kc.shape[1], [None] * kc.shape[1]
+        for qi in range(qc.shape[2]):
+            q_blk, do = qc[:, :, qi], dout[:, :, qi]
+            dq_i = None
+            for kj in range(kc.shape[1]):
+                p = torch.exp(plan.scores(q_blk, kc[:, kj], stripe_base,
+                                          qi, kj)
+                              - lse[:, :, qi][..., None])
+                dv_j = torch.einsum("bpqkgt,bpqkgd->btkd", p, do)
+                dp = torch.einsum("bpqkgd,btkd->bpqkgt", do, vc[:, kj])
+                ds = p * (dp - delta[:, :, qi][..., None]) * plan.scale
+                dq_ij = torch.einsum("bpqkgt,btkd->bpqkgd", ds, kc[:, kj])
+                dk_j = torch.einsum("bpqkgt,bpqkgd->btkd", ds, q_blk)
+                dq_i = dq_ij if dq_i is None else dq_i + dq_ij
+                dk[kj] = dk_j if dk[kj] is None else dk[kj] + dk_j
+                dv[kj] = dv_j if dv[kj] is None else dv[kj] + dv_j
+            dq.append(dq_i)
+        return (torch.stack(dq, dim=2), torch.stack(dk, dim=1),
+                torch.stack(dv, dim=1), None, None)
 
 
 def gqa_forward(p: dict, spec: AttnSpec, x: torch.Tensor,
@@ -256,8 +355,9 @@ def gqa_decode(p: dict, spec: AttnSpec, x: torch.Tensor, cache: dict,
     x.  Returns ``(y (B, 1, d), new cache)``; the caller's cache is not
     written.  A full cache's last slot is overwritten once ``pos`` reaches
     its length (the reference's clamp); a rolling cache (``spec.window``
-    at least its length) holds the last ``cache_len`` positions."""
-    b = x.shape[0]
+    at least its length) holds the last ``cache_len`` positions.  A
+    DTensor cache is written and read on each rank's own rows and slots
+    (``sharding.write_slots``, ``attend``) and keeps its placements."""
     cache_len = cache["k"].shape[1]
     q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
     k = _split_heads(L.dense(p["wk"], x), spec.num_kv_heads)
@@ -268,9 +368,8 @@ def gqa_decode(p: dict, spec: AttnSpec, x: torch.Tensor, cache: dict,
 
     rolling = spec.window is not None and cache_len <= spec.window
     slot = _slot(pos, cache_len, rolling)
-    rows = torch.arange(b, device=x.device)
-    new_k = cache["k"].index_put((rows, slot), k[:, 0].to(cache["k"].dtype))
-    new_v = cache["v"].index_put((rows, slot), v[:, 0].to(cache["v"].dtype))
+    new_k = S.write_slots(cache["k"], k[:, 0], slot)
+    new_v = S.write_slots(cache["v"], v[:, 0], slot)
     valid = _valid_keys(pos, cache_len, rolling, spec.window)
     out = attend(q, new_k, new_v, valid[:, None, None, :], spec.scale)
     y = L.dense(p["wo"], S.merge_heads(out).to(x.dtype))
@@ -280,8 +379,8 @@ def gqa_decode(p: dict, spec: AttnSpec, x: torch.Tensor, cache: dict,
 def cross_decode(p: dict, spec: AttnSpec, x: torch.Tensor,
                  memory_k: torch.Tensor, memory_v: torch.Tensor
                  ) -> torch.Tensor:
-    """One-token cross attention against the precomputed memory K/V."""
-    b = x.shape[0]
+    """One-token cross attention against the precomputed memory K/V
+    (DTensor caches read on each rank's own rows, through ``attend``)."""
     q = _split_heads(L.dense(p["wq"], x), spec.num_heads)
     out = attend(q, memory_k, memory_v, None, spec.scale)
     return L.dense(p["wo"], S.merge_heads(out).to(x.dtype))
@@ -373,8 +472,9 @@ def mla_decode(p: dict, spec: MLASpec, x: torch.Tensor, cache: dict,
     ``(ckv, kpe)`` cache is read; ``W_uk`` folds into the query and
     ``W_uv`` into the output, so a step costs O(S (kv_rank + rope_dim))
     a head.  Slots as in ``gqa_decode``; the given cache is not
-    written."""
-    b = x.shape[0]
+    written.  A DTensor cache is written and read on each rank's own rows
+    and slots (``sharding.write_slots``, ``sharding.attention_local``)
+    and keeps its placements."""
     h = spec.num_heads
     f32 = torch.float32
     cache_len = cache["ckv"].shape[1]
@@ -385,19 +485,29 @@ def mla_decode(p: dict, spec: MLASpec, x: torch.Tensor, cache: dict,
 
     rolling = spec.window is not None and cache_len <= spec.window
     slot = _slot(pos, cache_len, rolling)
-    rows = torch.arange(b, device=x.device)
-    ckv = cache["ckv"].index_put((rows, slot),
-                                 ckv_new[:, 0].to(cache["ckv"].dtype))
-    kpe = cache["kpe"].index_put((rows, slot),
-                                 kpe_new[:, 0].to(cache["kpe"].dtype))
-
-    scores = (torch.einsum("bshk,btk->bsht", q_lat, ckv.to(f32))
-              + torch.einsum("bshd,btd->bsht", q_pe.to(f32), kpe.to(f32))
-              ) * spec.scale
+    ckv = S.write_slots(cache["ckv"], ckv_new[:, 0], slot)
+    kpe = S.write_slots(cache["kpe"], kpe_new[:, 0], slot)
     valid = _valid_keys(pos, cache_len, rolling, spec.window)
-    probs = torch.softmax(scores + _mask_bias(valid[:, None, None, :]),
-                          dim=-1)
-    out_lat = torch.einsum("bsht,btk->bshk", probs, ckv.to(f32))
+
+    def scores_of(q_lat, q_pe, ckv, kpe, mask):
+        scores = (torch.einsum("bshk,btk->bsht", q_lat, ckv.to(f32))
+                  + torch.einsum("bshd,btd->bsht", q_pe.to(f32),
+                                 kpe.to(f32))) * spec.scale
+        return scores + _mask_bias(mask)
+
+    mask = valid[:, None, None, :]
+    if any(isinstance(t, DTensor) for t in (q_lat, q_pe, ckv, kpe, mask)):
+        def partial(q_lat, q_pe, ckv, kpe, mask):
+            scores = scores_of(q_lat, q_pe, ckv, kpe, mask)
+            m = torch.amax(scores, dim=-1)
+            p = torch.exp(scores - m[..., None])
+            return (torch.einsum("bsht,btk->bshk", p, ckv.to(f32)), m,
+                    torch.sum(p, dim=-1))
+        out_lat = S.attention_local(partial, (q_lat, q_pe), (ckv, kpe),
+                                    mask, kv_heads=False)
+    else:
+        probs = torch.softmax(scores_of(q_lat, q_pe, ckv, kpe, mask), dim=-1)
+        out_lat = torch.einsum("bsht,btk->bshk", probs, ckv.to(f32))
     # absorb W_uv: out[h, vd] = out_lat[h, kvr] @ W_uv[kvr, h*vd]
     wv = _split_heads(p["wv_up"]["w"], h)              # (kvr, h, vd)
     out = torch.einsum("bshk,khd->bshd", out_lat, wv.to(f32))

@@ -8,7 +8,9 @@
 * apply functions compute in the activations' dtype (the config's compute
   dtype), weights cast to it; norms, RoPE and the unembedding compute in
   float32, as the reference does.  They are functional (no in-place
-  writes), so ``torch.func`` transforms them.
+  writes), so ``torch.func`` transforms them;
+* ``checkpoint`` is the port's ``jax.checkpoint``: a function whose
+  activations the backward recomputes.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models import sharding as S
@@ -76,6 +79,28 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype, gated: bool = True,
 # Apply functions
 # ---------------------------------------------------------------------------
 
+def checkpoint(fn, *args):
+    """``fn(*args)``, its activations dropped after the forward and
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant,
+    on plain tensors and DTensors; the recompute runs through whatever
+    dispatch mode is active then, so a traced step counts it).  Without
+    grad mode, or inside a ``torch.func`` transform (which takes no
+    saved-tensor hooks), ``fn(*args)``: the same values, the activations
+    kept.  The recompute runs under the sharding rules and mesh the
+    forward saw: they are thread-local, and autograd runs a CUDA
+    backward on a device thread of its own, which holds none."""
+    if not torch.is_grad_enabled() or \
+            torch._C._functorch.peek_interpreter_stack() is not None:
+        return fn(*args)
+    rules, mesh = S.get_rules(), S.get_mesh()
+
+    def under_rules(*a):
+        with S.use_rules(rules, mesh):
+            return fn(*a)
+    return torch.utils.checkpoint.checkpoint(
+        under_rules, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     y = S.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
@@ -87,8 +112,10 @@ def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of the embedding table (a gather; its gradient sums the rows'
     gradients per token) in ``dtype``.  From a vocab-sharded DTensor
     table each rank gathers the rows it holds, zeros elsewhere: a partial
-    sum that is summed here, before an op that would not carry its mask."""
-    out = F.embedding(tokens, p["embedding"])
+    sum that is summed here, before an op that would not carry its mask.
+    A table sharded on a mesh dim that shards the tokens' rows is gathered
+    there first (``sharding.gathered``)."""
+    out = F.embedding(tokens, S.gathered(p["embedding"], tokens))
     if isinstance(out, DTensor) and any(pl.is_partial()
                                         for pl in out.placements):
         out = out.redistribute(placements=[
@@ -98,7 +125,14 @@ def embed(p: dict, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits = x @ E^T, in float32."""
-    return x.to(torch.float32) @ p["embedding"].to(torch.float32).T
+    return S.matmul(x.to(torch.float32), p["embedding"].to(torch.float32).T)
+
+
+def _scale(v: torch.Tensor) -> torch.Tensor:
+    """A norm's scale or bias vector in float32, replicated if a DTensor: a
+    shard of it would shard the activations' features, and the products
+    after the norm would then sum partial rows over the tensor dim."""
+    return S.replicate(v).to(torch.float32)
 
 
 def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -110,7 +144,7 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(x32.to(torch.float64) ** 2, dim=-1,
                      keepdim=True).to(torch.float32)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+    return (y * _scale(p["scale"])).to(x.dtype)
 
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -118,9 +152,9 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * p["scale"].to(torch.float32)
+    y = y * _scale(p["scale"])
     if "bias" in p:
-        y = y + p["bias"].to(torch.float32)
+        y = y + _scale(p["bias"])
     return y.to(x.dtype)
 
 

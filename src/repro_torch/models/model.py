@@ -6,7 +6,13 @@ and the cross-attention caches, for every architecture an
 Stage params carry a leading ``repeats`` dim on every leaf, as in the
 reference, whose layer stacks are scanned per stage; here the forward
 and the decode loop over the repeats (one ``unbind`` a stage leaf, so the
-backward stacks each leaf's per-layer gradients once).  Decode caches
+backward stacks each leaf's per-layer gradients once).  Under
+``cfg.remat == "block"`` each repeat of a super-block, and each encoder
+layer, runs under ``layers.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan bodies): the backward keeps only the
+residual stream between repeats and recomputes the rest.  The streamed
+loss checkpoints each chunk whatever ``remat`` says, as the reference
+does.  Decode caches
 stack the same way: ``{"pos": (B,), "stages": [...]}`` with a leading
 ``repeats`` dim on every stage leaf.  The dense decode is the serving
 path's oracle: ``serve.model.SparseModel`` matches it on masked params.
@@ -24,6 +30,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import BlockSpec, StageSpec
 from repro_torch.core import pruning
@@ -111,20 +118,32 @@ def _unstack(tree) -> list:
             for r in range(len(leaves[0]))] if leaves else []
 
 
+def _remat(cfg, body, *args):
+    """``body(*args)``, checkpointed under ``cfg.remat == "block"``."""
+    return L.checkpoint(body, *args) if cfg.remat == "block" \
+        else body(*args)
+
+
 def _stage_forward(cfg, stage, stage_params, x, memory, positions):
     """The stage's super-block applied once per repeat, in order."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in _unstack(stage_params):
+
+    def body(x, aux, layer):
         for i, spec in enumerate(stage.blocks):
             x, a = B.apply_block(cfg, spec, layer[f"b{i}"], x, memory,
                                  positions)
             aux = aux + a
-        x = S.constrain(x, "batch", "seq", "embed")
+        return S.constrain(x, "batch", "seq", "embed"), aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in _unstack(stage_params):
+        x, aux = _remat(cfg, body, x, aux, layer)
     return x, aux
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, device=device)[None].expand(b, s)
+def _positions(s: int, device) -> torch.Tensor:
+    """(1, S): every row's positions, broadcast over the batch (RoPE's
+    angles are then computed once, not once a row)."""
+    return torch.arange(s, device=device)[None]
 
 
 def _encode_memory(cfg, params, memory_raw: Optional[torch.Tensor]
@@ -139,13 +158,16 @@ def _encode_memory(cfg, params, memory_raw: Optional[torch.Tensor]
     if cfg.encoder_layers > 0:
         enc_cfg, _ = _encoder(cfg)
         spec = dataclasses.replace(enc_cfg.attn_spec("attn"), causal=False)
-        positions = _positions(mem.shape[0], mem.shape[1], mem.device)
-        for layer in _unstack(params["encoder"]["stage"]):
-            p = layer["b0"]
+        positions = _positions(mem.shape[1], mem.device)
+
+        def body(mem, p):
             y = B.norm_apply(enc_cfg, p["norm_mix"], mem)
             mem = mem + A.gqa_forward(p["attn"], spec, y, positions)
             y = B.norm_apply(enc_cfg, p["norm_ffn"], mem)
-            mem = mem + L.mlp(p["ffn"], y, enc_cfg.act)
+            return mem + L.mlp(p["ffn"], y, enc_cfg.act)
+
+        for layer in _unstack(params["encoder"]["stage"]):
+            mem = _remat(cfg, body, mem, layer["b0"])
         mem = B.norm_apply(cfg, params["encoder"]["norm"], mem)
     return mem
 
@@ -156,10 +178,9 @@ def hidden_states(cfg, params, tokens: torch.Tensor,
     """Residual stream after the final norm (pre-unembedding), and the
     auxiliary loss; tokens: (B, S) integers, ``memory`` the stub
     frontend's embeddings (a model without memory tokens ignores it)."""
-    b, s = tokens.shape
     x = S.constrain(L.embed(params["embed"], tokens, cfg.cdtype),
                     "batch", "seq", "embed")
-    positions = _positions(b, s, tokens.device)
+    positions = _positions(tokens.shape[1], tokens.device)
     mem = _encode_memory(cfg, params, memory) if cfg.num_memory_tokens \
         else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -184,6 +205,10 @@ def forward(cfg, params, tokens: torch.Tensor,
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[targets]; DTensor logits through
+    ``sharding.vocab_nll`` (each rank's rows and vocab slice)."""
+    if isinstance(logits, DTensor):
+        return S.vocab_nll(logits, targets)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets[..., None].to(torch.int64))[..., 0]
 
@@ -191,17 +216,22 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def _chunked_nll(cfg, params, x: torch.Tensor, targets: torch.Tensor,
                  chunk: int = _LOSS_CHUNK) -> torch.Tensor:
     """Streaming cross-entropy: logits exist one (B, chunk, V) block at a
-    time, summed chunk by chunk in order; the mean over every token.  The
+    time, summed chunk by chunk in order; the mean over every token.  Each
+    chunk is checkpointed, so the backward recomputes its logits too.  The
     last chunk is ragged where ``chunk`` does not divide S.  The reference
     halves its chunk until it divides S, so an odd S (train_4k's 4,095
     predictions) streams one position at a time there: the same mean,
     summed in another order, where the port takes 8 chunks."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
+
+    def body(xb, tb):
+        return torch.sum(_nll(_unembed(cfg, params, xb), tb))
+
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for j in range(0, s, chunk):
-        logits = _unembed(cfg, params, x[:, j:j + chunk])
-        total = total + torch.sum(_nll(logits, targets[:, j:j + chunk]))
+        total = total + L.checkpoint(body, x[:, j:j + chunk],
+                                     targets[:, j:j + chunk])
     return total / (b * s)
 
 

@@ -7,13 +7,16 @@ port of ``repro.models.moe``).
   semantics.
 * Dispatch sorts the N*k (token, choice) entries stably by expert, so an
   entry's place in its expert's queue is its sorted index less the
-  expert's start.  Expert slot (e, c) reads the entry at sorted index
-  start_e + c when c < count_e: a gather from the N*k repeated token rows,
-  which takes each row at most once.
+  expert's start.  Expert slot (e, c) reads the token of the entry at
+  sorted index start_e + c when c < count_e, else a zero row: a gather
+  from the N token rows (entry t*k + j is token t's), which takes each
+  entry at most once.
 * Combine gathers each entry's expert output back through the inverse
   permutation (entry -> slot) and sums a token's k weighted outputs over a
-  fixed axis.  No scatter-add anywhere: forward and backward add the same
-  values in the same order on every run, on the card too.
+  fixed axis.  The one scatter-add is the dispatch gather's backward,
+  which sums each token's up to k slot gradients (an ``index_put`` with
+  accumulate).  Forward and backward repeat bit for bit on every run
+  (``chip_smoke.py`` 16e reruns a full-width MoE backward on the card).
 * Expert weights are stacked (E, d_in, d_ff); the router is float32 in a
   bfloat16 model, as in the reference.
 
@@ -100,14 +103,14 @@ def moe_ffn(p: dict, spec: MoESpec, x: torch.Tensor
     inv = torch.argsort(order)                        # entry -> sorted
     pos = queue[inv]                                  # entry's queue place
     keep = pos < cap
-    # slot (e, c) <- entry order[start_e + c] while c < count_e; else the
-    # zero row n*k
+    # slot (e, c) <- the token of entry order[start_e + c] while c <
+    # count_e; else the zero row n
     c = torch.arange(cap, device=dev)
     at = torch.clamp_max(starts[:, None] + c, n * k - 1)
-    src = torch.where(c < counts[:, None], order[at], n * k)     # (E, C)
-    rows = torch.cat([xf[:, None].expand(n, k, d).reshape(n * k, d),
-                      xf.new_zeros((1, d))])
-    xe = rows[src]                                               # (E, C, d)
+    src = torch.where(c < counts[:, None], order[at] // k, n)    # (E, C)
+    xe = torch.cat([xf, xf.new_zeros((1, d))])[src]              # (E, C, d)
+    # each rank keeps its experts' slots (the gather's result is whole)
+    xe = S.constrain(xe, "experts", None, None)
 
     # ---- expert FFN ----
     act_fn = L.ACTS[spec.act]
@@ -124,4 +127,4 @@ def moe_ffn(p: dict, spec: MoESpec, x: torch.Tensor
     wk = (top_w.reshape(n * k) * keep).to(ye.dtype)
     routed = ye_rows[slot] * wk[:, None]
     y = torch.sum(routed.reshape(n, k, d), 1)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    return S.view(y, (b, s, d)).to(x.dtype), aux

@@ -2,13 +2,14 @@
 RG-LRU (Griffin / RecurrentGemma), mLSTM and sLSTM (xLSTM), and the
 causal depthwise conv they use.
 
-The full-sequence forms step through time in order: the RG-LRU's linear
-recurrence, which the reference runs as an ``associative_scan`` with
-``h0`` folded into step 0, as one ``a h + b`` a step; the (s/m)LSTM
-cells, ``lax.scan`` in the reference, as a loop of the same cell.  The
-RG-LRU therefore associates its products differently from the
-reference (float32 1e-5, float64 1e-10); the cells do the reference's
-arithmetic step for step.  Gates and states are float32 as in the
+The RG-LRU's linear recurrence runs, as in the reference, as an
+associative scan of the combine ``(a_l a_r, a_r b_l + b_r)`` with ``h0``
+folded into step 0 (``_linear_scan``: 2 log2(S) levels of whole-tensor
+ops, not a step a position); it associates its products differently from
+the reference's ``associative_scan`` (float32 1e-5, float64 1e-10).  The
+(s/m)LSTM cells, ``lax.scan`` in the reference, step through time in
+order as a loop of the same cell, the reference's arithmetic step for
+step.  Gates and states are float32 as in the
 reference, and mixed operands promote as JAX promotes them.
 
 State conventions (decode), the reference's:
@@ -23,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as S
@@ -58,7 +60,7 @@ def init_conv1d(generator, d: int, width: int, dtype) -> dict:
 def conv1d(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv over (B, S, d)."""
     width, s = p["w"].shape[0], x.shape[1]
-    pad = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
+    pad = S.pad(x, (0, 0, width - 1, 0))
     out = pad[:, 0:s, :] * p["w"][0].to(x.dtype)
     for i in range(1, width):
         out = out + pad[:, i:i + s, :] * p["w"][i].to(x.dtype)
@@ -108,19 +110,40 @@ def _rglru_coeffs(p: dict, x: torch.Tensor):
     return a, b
 
 
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0, as a
+    work-efficient associative scan: adjacent pairs combine into one step
+    (``(a_0 a_1, a_1 b_0 + b_1)``), the half-length scan gives h at the
+    odd positions, and one more step each gives the even ones.  An odd
+    length is padded with the identity step (a = 1, b = 0)."""
+    n = a.shape[1]
+    if n == 1:
+        return b
+    if n % 2:
+        a = F.pad(a, (0, 0, 0, 1), value=1.0)
+        b = F.pad(b, (0, 0, 0, 1))
+    a0, a1 = a.unflatten(1, (-1, 2)).unbind(2)
+    b0, b1 = b.unflatten(1, (-1, 2)).unbind(2)
+    odd = _linear_scan(a0 * a1, torch.addcmul(b1, a1, b0))
+    # h at 2i: a_2i h_(2i-1) + b_2i, with h_(-1) = 0
+    even = torch.addcmul(b0, a0, F.pad(odd[:, :-1], (0, 0, 1, 0)))
+    h = torch.stack([even, odd], dim=2).flatten(1, 2)
+    return h[:, :n] if n % 2 else h
+
+
 def rglru(p: dict, x: torch.Tensor, h0: Optional[torch.Tensor] = None
           ) -> torch.Tensor:
     """Full-sequence RG-LRU, h_t = a_t h_{t-1} + b_t from ``h0`` (0 if
-    None).  x: (B,S,d)."""
+    None), as an associative scan (``_linear_scan``) on each rank's batch
+    rows.  x: (B,S,d)."""
     a, b = _rglru_coeffs(p, x)
 
     def scan(a, b, *h0):
-        h = b[:, 0] if not h0 else a[:, 0] * h0[0].to(b.dtype) + b[:, 0]
-        hs = [h]
-        for t in range(1, a.shape[1]):
-            h = a[:, t] * h + b[:, t]
-            hs.append(h)
-        return torch.stack(hs, dim=1)
+        if h0:
+            # fold the initial state into the first step: h_0 = a_0 h0 + b_0
+            b = torch.cat([a[:, :1] * h0[0].to(b.dtype)[:, None] + b[:, :1],
+                           b[:, 1:]], dim=1)
+        return _linear_scan(a, b)
 
     return S.batch_local(scan, a, b, *(() if h0 is None else (h0,))
                          ).to(x.dtype)

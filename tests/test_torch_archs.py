@@ -111,12 +111,12 @@ def _fields(cfg, names) -> dict:
 @needs_jax
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_config_matches_reference_field_for_field(name):
-    """Every field of the port's config (the reference's but ``remat``)
-    and the derived widths, full and smoke; the attention specs of
-    every kind."""
+    """Every field of the port's config (the reference's, ``remat``
+    included) and the derived widths, full and smoke; the attention
+    specs of every kind."""
     j, t = j_get_config(name), t_get_config(name)
     names = [f.name for f in dataclasses.fields(t)]
-    assert set(names) == {f.name for f in dataclasses.fields(j)} - {"remat"}
+    assert set(names) == {f.name for f in dataclasses.fields(j)}
     derived = ["head_dim_", "num_layers", "rnn_width_", "memory_dim_"]
     for jc, tc in ((j, t), (j.smoke_variant(), t.smoke_variant())):
         assert _fields(tc, names + derived) == _fields(jc, names + derived)

@@ -21,7 +21,9 @@ against their plain values; ``psum_aggregate`` over the client dim of a
 (2, 2) mesh on sharded grads against the whole grads'; and C3: models
 whose 3 heads the "model" dim of 2 does not divide (GQA, MLA, xLSTM),
 their forward, loss and grads sharded on the (2, 2) mesh against the
-unsharded ones.
+unsharded ones; and C5: three decode steps on the (2, 2) mesh with the
+cache placed by ``cache_shardings`` against the unsharded steps, every
+returned cache leaf keeping its placements.
 """
 
 import os
@@ -227,11 +229,17 @@ for c_i in (torch.tensor(1.0), torch.tensor(float(client == 0)),
 # the (2, 2) mesh against the unsharded ones, with rules installed as the
 # dry run installs them
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 smol, mla_cfg, xl = (get_config(n).smoke_variant() for n in
                      ("smollm-135m", "minicpm3-4b", "xlstm-125m"))
 gqa = dataclasses.replace(smol, head_dim=48)
 # (config, sequence length): 2,048 takes flash attention's query stripes
 c3 = {"gqa": (gqa, 16), "gqa_flash": (gqa, 2048),
+      # each repeat checkpointed on DTensors, as the full configs run
+      "gqa_remat": (dataclasses.replace(gqa, remat="block"), 16),
+      # and its backward on a thread without rules, as a card runs it
+      "gqa_flash_remat_thread": (dataclasses.replace(gqa, remat="block"),
+                                 2048),
       "mla": (dataclasses.replace(mla_cfg, num_heads=3, num_kv_heads=3,
                                   mla=dataclasses.replace(mla_cfg.mla,
                                                           num_heads=3)), 16),
@@ -253,8 +261,24 @@ for label, (cfg3, seq3) in c3.items():
         with MS.use_rules(dict(MS.DEFAULT_RULES), mesh), \
                 implicit_replication():
             logits, _ = M.forward(cfg3, d3, dtok3)
-            (loss3, _), grads3 = pruning.value_and_grad(
-                lambda p: M.loss_fn(cfg3, p, {"tokens": dtok3}), d3)
+            if label.endswith("_thread"):
+                leaves3 = [p.detach().requires_grad_()
+                           for p in pruning.flatten(d3)]
+                loss3, _ = M.loss_fn(cfg3, pruning.unflatten(d3, leaves3),
+                                     {"tokens": dtok3})
+                def backward():
+                    # a thread without the sharding rules; DTensor's
+                    # implicit replication set, as the step sets it
+                    with implicit_replication():
+                        return torch.autograd.grad(
+                            loss3, leaves3, allow_unused=True,
+                            materialize_grads=True)
+                with ThreadPoolExecutor(1) as pool:
+                    grads3 = pool.submit(backward).result()
+                loss3 = loss3.full_tensor()
+            else:
+                (loss3, _), grads3 = pruning.value_and_grad(
+                    lambda p: M.loss_fn(cfg3, p, {"tokens": dtok3}), d3)
         want_logits, _ = M.forward(cfg3, p3, tok3)
         (want_loss3, _), want_grads3 = pruning.value_and_grad(
             lambda p: M.loss_fn(cfg3, p, {"tokens": tok3}), p3)
@@ -275,6 +299,66 @@ for label, (cfg3, seq3) in c3.items():
         }
     except RuntimeError as e:
         res["c3"][label] = repr(e)
+# C5: the decode step on the (2, 2) mesh, placed as the dry run places
+# it (serving params, the cache at cache_shardings: batch rows over
+# "data", cache slots over "model"), three steps from a random cache
+# whose positions straddle the slot shards, against the unsharded steps
+res["c5"] = {}
+for name in ("qwen2-7b", "minicpm3-4b", "whisper-base", "recurrentgemma-2b"):
+    cfg5 = get_config(name).smoke_variant()
+    p5 = M.init_params(cfg5, torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    # 64 slots: the largest dim, so "model" takes them (32 a rank); the
+    # positions cross slot 32 and reach the last slot's clamp
+    cache5 = M.init_cache(cfg5, 4, 64, device="cpu")
+    cache5 = {"pos": torch.tensor([30, 31, 62, 5]), "stages": pruning.tree_map(
+        lambda a: (0.5 * torch.randn(a.shape, generator=gen)).to(a.dtype),
+        cache5["stages"])}
+    if cfg5.num_memory_tokens:
+        cache5 = M.fill_cross_caches(cfg5, p5, cache5, torch.randn(
+            (4, cfg5.num_memory_tokens, cfg5.memory_dim_), generator=gen))
+    tok5 = torch.randint(0, cfg5.vocab_size, (3, 4, 1), generator=gen)
+
+    def placed(tree, specs):
+        return pruning.unflatten(tree, [
+            distribute_tensor(a, mesh, SH.placements(sp, mesh),
+                              src_data_rank=None)
+            for a, sp in zip(pruning.flatten(tree),
+                             SH.leaves_like(specs, tree))])
+    d5 = placed(p5, SH.param_shardings(p5, mesh, fsdp=False))
+    dc5 = placed(cache5, SH.cache_shardings(cache5, mesh))
+    in_places = [tuple(a.placements) for a in pruning.flatten(dc5)]
+    got5 = []
+    with torch.no_grad():
+        with MS.use_rules(dict(MS.DEFAULT_RULES), mesh), \
+                implicit_replication():
+            for t in range(3):
+                dtok = distribute_tensor(tok5[t], mesh, SH.placements(
+                    SH.data_pspec((4, 1), mesh), mesh), src_data_rank=None)
+                logits5, dc5 = M.decode_step(cfg5, d5, dtok, dc5)
+                got5.append(logits5.full_tensor())
+        plain5 = cache5
+        want5 = []
+        for t in range(3):
+            logits5, plain5 = M.decode_step(cfg5, p5, tok5[t], plain5)
+            want5.append(logits5)
+    leaves5 = pruning.flatten(dc5)
+    res["c5"][name] = {
+        "logits_err": max(float((g - w).abs().max() / w.abs().max())
+                          for g, w in zip(got5, want5)),
+        "cache_err": max(
+            float((g.full_tensor() - w).abs().max()
+                  / w.abs().max().clamp_min(1e-30))
+            for g, w in zip(leaves5, pruning.flatten(plain5))),
+        "pos": torch.equal(dc5["pos"].full_tensor(), plain5["pos"]),
+        "kept": [tuple(a.placements) == want
+                 for a, want in zip(leaves5, in_places)],
+        "rows_on_data": [a.placements[0] == Shard(1)
+                         for a in pruning.flatten(dc5["stages"])],
+        "slots_on_model": [a.placements[1] == Shard(2) for path, a in zip(
+            SH.leaves_like(SH.cache_shardings(cache5, mesh), cache5),
+            pruning.flatten(dc5)) if path[1:3] == ("data", "model")],
+    }
 with open(out, "wb") as f:
     pickle.dump(res, f)
 dist.barrier()
@@ -357,12 +441,38 @@ def test_psum_aggregate_on_shards(world4):
     assert all(all(r["psum"]) and len(r["psum"]) == 3 for r in world4)
 
 
-@pytest.mark.parametrize("label", ["gqa", "gqa_flash", "mla", "xlstm"])
+@pytest.mark.parametrize("name", ["qwen2-7b", "minicpm3-4b", "whisper-base",
+                                  "recurrentgemma-2b"])
+def test_sharded_decode_keeps_cache_rows_local(world4, name):
+    """C5: three decode steps on ("data" 2, "model" 2) with the cache at
+    ``cache_shardings`` (batch rows over "data", cache slots over "model";
+    GQA, MLA, cross attention and whisper's self attention, the RG-LRU's
+    states and its local attention; 64 slots, so every attention cache is
+    split over "model" on its slots, and each rank's softmax over its
+    slots combines across "model"): logits and the new cache within
+    1e-5 of the unsharded steps, and every returned cache leaf keeps its
+    placements (its batch dim ``Shard(1)`` on "data"): each rank writes
+    and attends its own rows and slots."""
+    for r in world4:
+        got = r["c5"][name]
+        assert got["logits_err"] <= 1e-5
+        assert got["cache_err"] <= 1e-5
+        assert got["pos"]
+        assert all(got["kept"]) and all(got["rows_on_data"])
+        assert got["slots_on_model"] and all(got["slots_on_model"])
+
+
+@pytest.mark.parametrize("label", ["gqa", "gqa_flash", "gqa_remat",
+                                   "gqa_flash_remat_thread", "mla", "xlstm"])
 def test_heads_the_model_dim_does_not_divide(world4, label):
     """C3: 3 heads over a "model" dim of 2, whose shards of the heads'
     features (the reference's specs) end in the middle of a head: GQA
     (smollm-135m's smoke width at head_dim 48; at 2,048 tokens too, where
-    flash attention's query stripes shard the sequence over "model"), MLA
+    flash attention's query stripes shard the sequence over "model"; and
+    with ``remat="block"``, each repeat checkpointed on DTensors, at 16
+    tokens and at 2,048 with the backward run on a thread that holds no
+    sharding rules, as autograd runs a card's backward: the recompute
+    keeps the forward's rules, stripes and constraints), MLA
     (minicpm3-4b's) and the mLSTM and sLSTM cells (xlstm-125m's at
     d_model 96).  The head views replicate such shards first (DTensor
     refuses the view), products flatten their rows through the same
