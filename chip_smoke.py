@@ -36,7 +36,17 @@ Phases (any failure exits non-zero and prints no result line):
                of the
                plain version, bitwise alone / grouped / rerun, timed
                beside an einsum, the byte bound and an empty launch's
-               device time (``launch_floor_ms``);
+               device time (``launch_floor_ms``); the xLSTM scans
+               (mlstm_scan and slstm_scan, forward and backward) at
+               xlstm-125m's heads (4 of 384, 4 of 192) on (2, 256) from
+               zero and drawn states: h and every input's gradient
+               against autograd of the plain version within 1e-4 of
+               max(1, |plain|), rerun bitwise; at 17a's host-step shape
+               (4, 4096) the forward against the plain forward and rerun
+               bitwise, and each op's ms (CUDA events over back-to-back
+               launches), call ms (a call alone) and bound, with the
+               plain forward's ms there and the plain backward's at (2,
+               256) (``plain_shape``, ``small_ms``);
   4. main    — 5 synchronous fleet rounds: 10,000 clients (100 x 100 cells),
                the paper's 784-60-20-10 DNN, kernel="fused"; per-round
                metrics and wall time, launch counts (each > 0, the tile
@@ -110,7 +120,7 @@ Phases (any failure exits non-zero and prints no result line):
                + 1 records) and a SpanRecorder's chrome trace of the build,
                simulate and finalize spans;
  14. host reference path — (a) the paper's §V run on Table I (5 UEs, K =
-               30, 40, 50, 30, 40, the DNN, 20 rounds cut from 200), every
+               30, 40, 50, 30, 40, the DNN, 8 rounds cut from 200), every
                scheme (fpr at 0.3), magnitude and block-16 masks: finite
                losses, proposed's falling and rerunning bitwise, one
                tile-norm launch a round with block masks (none without),
@@ -184,7 +194,16 @@ Phases (any failure exits non-zero and prints no result line):
                in float32 at full width by a 2 x 4 fleet
                (TransformerTask(arch=...), the generic path), 2 rounds:
                one grouped tile-norm launch a round over its 4-D and 3-D
-               leaves, rerun bitwise.
+               leaves, every scan kernel launched under torch.func.vmap
+               (``fleet_launches``), rerun bitwise; then xlstm-125m at
+               full width in bfloat16 through the launcher's host step
+               (remat "block"), 3 steps on one (4, 4096) batch: the loss
+               finite and falling, 12 / 6 / 12 / 6 launches a step of
+               mlstm_scan / its backward / slstm_scan / its backward
+               (the scan rows' ``launches``: the main path of these
+               kernels), a rerun bitwise, ms a warm step, peak memory
+               and the scan kernels' share of a profiled step's device
+               time.
  18. the training launcher and the mesh trainer — (a) ``launch.train.main``
                in this process on the card at smollm-135m's smoke width:
                20 Adam steps (the last logged loss below the first), 10
@@ -269,14 +288,15 @@ Phases (any failure exits non-zero and prints no result line):
                — (a) phase 18b's warm host step at smollm-135m's full
                width as a roofline share: ``model_flops`` of its B x S
                tokens (6 N D) over (ms x 989 TFLOP/s, the bfloat16
-               peak), beside the card's name and power limit; (b) in four
+               peak), beside the card's name and power limit; (b) in five
                processes of their own, started together with phase 20
                (no card,
                ``CUDA_VISIBLE_DEVICES`` empty), ``python -m
                repro_torch.launch.dryrun --arch smollm-135m --shape
-               decode_32k`` and ``--arch qwen2-7b --shape train_4k`` (a
-               fake group of 256 ranks, the step traced on the 16 x 16
-               mesh under ``FakeTensorMode``), ``--fleet`` (512 ranks,
+               decode_32k``, ``--arch qwen2-7b --shape train_4k`` and
+               ``--arch xlstm-125m --shape train_4k`` (a fake group of
+               256 ranks, the step traced on the 16 x 16 mesh under
+               ``FakeTensorMode``), ``--fleet`` (512 ranks,
                the fleet engine's cell solve and gradient sum) and
                ``python -m repro_torch.launch.diagnose --arch qwen2-7b
                --shape decode_32k``: their output printed, ``OK`` and
@@ -284,8 +304,8 @@ Phases (any failure exits non-zero and prints no result line):
                ``FakeTensorMode`` is missing, if the qwen2-7b decode's
                peak exceeds 8 GiB a chip, an all-gather is among its
                biggest tensors or a stacked cache holds more than a data
-               shard's 8 rows, or if the train step's peak is not under
-               70 GiB.
+               shard's 8 rows, or if either train step's peak is not
+               under 70 GiB.
                ``--phase21`` runs phases 1 and 21b.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
@@ -306,7 +326,11 @@ two ranks', and ``fl_block16_*``, the tile norms on 18c's ranking; row 2
 ``tp_shard_launches``, phase 19a's four ranks' over both blocks, and
 ``tp_shard_*``, the tile norms on rank (0, 0)'s local shards at block
 16; the fleet rows ``fleet_mesh_launches``, phase 20a's four ranks'
-over both paths); the last is the device JSON.
+over both paths; the four scan rows ``launches``, 17a's host step's, and
+``fleet_launches``, 17a's fleet's).  A row's ``ms`` is a
+``torch.profiler`` device time, except the four scan rows', which are
+CUDA-event times over back-to-back launches (see ``time_scan``); the
+last line is the device JSON.
 Peak rates for bounds: H100 SXM at 700 W, 67 TFLOP/s float32 without tensor
 cores and 3.35 TB/s (the card's own limit is printed beside them).
 """
@@ -1152,6 +1176,243 @@ def check_prefill(card: str) -> dict:
                 replaces="src/repro/kernels/flash_prefill.py:102",
                 max_abs_err=worst, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+
+
+# the xLSTM scans: held against autograd of their plain versions at
+# xlstm-125m's heads (mLSTM 4 of 384, sLSTM 4 of 192) on (B, S) = (2,
+# 256), and timed at 17a's host step, (4, 4096)
+SCAN_B, SCAN_S = 2, 256
+XHOST_B, XHOST_S, XHOST_STEPS = 4, 4096, 3
+SCAN_HEADS = {"mlstm": (4, 384), "slstm": (4, 192)}
+# each op's device kernels (profiler names)
+SCAN_KERNELS = {"mlstm_scan": ("mlstm_fwd_kernel",),
+                "mlstm_scan_bwd": ("mlstm_bwd_mat_kernel",
+                                   "mlstm_bwd_gate_kernel"),
+                "slstm_scan": ("slstm_fwd_kernel",),
+                "slstm_scan_bwd": ("slstm_bwd_kernel",)}
+# launches a train step of xlstm-125m at remat="block" (6 layers of each
+# cell): the forward and the backward's recompute, and the backward
+XSCAN_PER_STEP = {"mlstm_scan": 12, "mlstm_scan_bwd": 6, "slstm_scan": 12,
+                  "slstm_scan_bwd": 6}
+
+
+def scan_inputs(kind: str, b: int, s: int, seed: int, state: bool) -> list:
+    """The scan op's inputs on the card from a seed, at xlstm-125m's heads:
+    gates spread wide (N(0, 9) pre-activations, reaching both sides of
+    the stabiliser's max), and the states zero (the model's start; the
+    sLSTM's n at its 1e-6 floor) or drawn."""
+    import torch
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    h, hd = SCAN_HEADS[kind]
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=CARD)
+
+    if kind == "mlstm":
+        ins = [r(b, s, h, hd), r(b, s, h, hd), r(b, s, h, hd),
+               3.0 * r(b, s, h), 3.0 * r(b, s, h) + 1.0]
+        return ins + ([r(b, h, hd, hd), r(b, h, hd), r(b, h)] if state else
+                      [torch.zeros((b, h, hd, hd), device=CARD),
+                       torch.zeros((b, h, hd), device=CARD),
+                       torch.zeros((b, h), device=CARD)])
+    ins = [3.0 * r(b, s, h, 4, hd), r(h, 4, hd, hd) * hd ** -0.5]
+    if state:
+        c0 = r(b, h, hd)
+        return ins + [c0, c0.abs() + 0.5, r(b, h, hd), r(b, h, hd)]
+    zero = torch.zeros((b, h, hd), device=CARD)
+    return ins + [zero, torch.full_like(zero, 1e-6), zero, zero]
+
+
+def scan_grads(fn, ins, dh) -> list:
+    """[h, and the gradient of <dh, h> with respect to every input] of
+    ``fn`` (the op's differentiable entry or its plain version)."""
+    import torch
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in ins]
+        h = fn(*xs)
+        return [h.detach()] + list(torch.autograd.grad(h, xs, dh))
+
+
+def scan_bytes(kind: str, direction: str, ins) -> float:
+    """Bytes the op must move: each input read once, each output written
+    once (float32)."""
+    b, s, h = ins[0].shape[:3]
+    hd = SCAN_HEADS[kind][1]
+    vec, pos, state = b * s * h * hd, b * s * h, b * h * hd
+    if kind == "mlstm":
+        states = b * h * hd * hd + state + b * h
+        snaps = b * h * -(-s // 32) * hd * hd     # C every 32 positions
+        n = {"fwd": 3 * vec + 2 * pos + states + 2 * vec + 2 * pos + snaps,
+             "bwd": 6 * vec + 4 * pos + states + snaps + 3 * vec + 2 * pos
+             + states}[direction]
+    else:
+        rec = h * 4 * hd * hd
+        n = {"fwd": 4 * vec + rec + 4 * state + 4 * vec + 4 * vec,
+             "bwd": vec + rec + 3 * state + 3 * vec + 4 * vec + 4 * vec
+             + 4 * state}[direction]
+    return 4.0 * n
+
+
+def time_scan(kind: str, ins) -> dict:
+    """The forward and backward ops on ``ins`` (one shape): ms by CUDA
+    events over back-to-back launches (each a millisecond or more, so
+    the host's dispatch hides under the device's work; late in a long run
+    the profiler drops some of these kernels' records), call ms a call
+    alone (its dispatch included), bounds from this run's shapes and the
+    registered flop formulas."""
+    import torch
+    from torch.utils.flop_counter import flop_registry
+    fwd = getattr(torch.ops.repro_torch, f"{kind}_scan")
+    bwd = getattr(torch.ops.repro_torch, f"{kind}_scan_bwd")
+    outs = fwd(*ins)
+    dh = torch.randn_like(outs[0])
+    saved = list(outs) if kind == "mlstm" else list(outs[1:])
+    calls = {"fwd": (fwd, list(ins)), "bwd": (bwd, [dh, *ins, *saved])}
+    res = {}
+    for direction, (op, args) in calls.items():
+        name = f"{kind}_scan" + ("_bwd" if direction == "bwd" else "")
+        ops = float(flop_registry[op](*args, out_val=None))
+        bound, bound_by = bound_ms(scan_bytes(kind, direction, ins), ops)
+        iters = 3 if ins[0].shape[1] > 1024 else 10
+        res[name] = dict(
+            ms=cuda_ms(lambda: op(*args), iters),
+            call_ms=sum(timed_once(lambda: op(*args))[1]
+                        for _ in range(iters)) / iters,
+            bound_ms=bound, bound_by=bound_by)
+    return res
+
+
+def timed_once(fn) -> tuple:
+    """(fn(), its CUDA-event ms): one call of a plain version too slow to
+    repeat (plain PyTorch compiles nothing, so a first call is warm)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_scans(card: str) -> list:
+    """Phase 3's scan kernels (``kernels/mlstm_scan.py``,
+    ``kernels/slstm_scan.py``).  On (2, 256) at xlstm-125m's heads, from
+    zero and from drawn states: h and every input's gradient through the
+    differentiable entry (the forward kernel, the backward kernel and,
+    for the sLSTM, R's gradient as the product outside it) against
+    autograd of the plain version, |kernel - plain| within TOL of max(1,
+    |plain|) (a zero-state m0 gradient is ~1e-5, a difference of O(1)
+    terms that float32 cancels to ~1e-7 either way), and a rerun
+    bitwise.  At 17a's host-step shape (4, 4096), from zero states: the
+    forward against the plain forward, and every gradient against
+    autograd of the plain version under the same gate, the kernels run
+    on the whole batch and rerun bitwise.  The plain backward keeps every
+    step's state, so the mLSTM's (2 hd^2 floats a step and head, ~19 GB
+    a row) is held on the batch's last row (rows are independent), the
+    sLSTM's on the whole batch.  Each op's ms and bound at both shapes;
+    the plain versions' ms at both, each one call (the backward's
+    autograd of the stepped cell, its forward included).  Returns the
+    four kernels' rows (launches filled in by 17a)."""
+    import torch
+    from repro_torch.kernels import mlstm_scan as MS
+    from repro_torch.kernels import slstm_scan as SS
+    rows = []
+    for kind, mod in (("mlstm", MS), ("slstm", SS)):
+        entry, plain = getattr(mod, f"{kind}_scan"), \
+            getattr(mod, f"{kind}_scan_plain")
+        worst, plain_small = 0.0, {}
+        for state in (False, True):
+            ins = scan_inputs(kind, SCAN_B, SCAN_S, 41 + state, state)
+            h, plain_small["fwd"] = timed_once(lambda: plain(*ins))
+            dh = torch.randn_like(h)
+            got = scan_grads(entry, ins, dh)
+            again = scan_grads(entry, ins, dh)
+            want, plain_small["bwd"] = timed_once(
+                lambda: scan_grads(plain, ins, dh))
+            errs = []
+            for a, w in zip(got, want):
+                diff = float((a - w).abs().max())
+                errs.append(diff / max(float(w.abs().max()), 1.0))
+                worst = max(worst, diff)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"  {kind}_scan (B={SCAN_B}, S={SCAN_S}, heads "
+                f"{SCAN_HEADS[kind]}, {'drawn' if state else 'zero'} "
+                f"states): h and grads err / max(1, |plain|) "
+                f"{', '.join(f'{e:.1e}' for e in errs)} (tol {TOL}); rerun "
+                f"{'bitwise' if same else 'DIFFERENT'} [{card}]")
+            if max(errs) > TOL or not same:
+                raise AssertionError(f"{kind}_scan disagrees with its plain "
+                                     f"version or its rerun")
+        small = time_scan(kind, ins)
+        ins = scan_inputs(kind, XHOST_B, XHOST_S, 44, False)
+        got = entry(*ins)
+        same = torch.equal(got, entry(*ins))
+        with torch.no_grad():
+            want, plain_fwd = timed_once(lambda: plain(*ins))
+        diff = float((got - want).abs().max())
+        rel = diff / max(float(want.abs().max()), 1.0)
+        worst = max(worst, diff)
+        log(f"  {kind}_scan forward (B={XHOST_B}, S={XHOST_S}): err / max(1,"
+            f" |plain|) {rel:.1e} (tol {TOL}); rerun "
+            f"{'bitwise' if same else 'DIFFERENT'} [{card}]")
+        if rel > TOL or not same:
+            raise AssertionError(f"{kind}_scan at (4, 4096) disagrees")
+        dh = torch.randn_like(got)
+        del got, want
+        got = scan_grads(entry, ins, dh)
+        same = all(torch.equal(a, b)
+                   for a, b in zip(got, scan_grads(entry, ins, dh)))
+        part, dh_part = ins, dh
+        if kind == "mlstm":
+            part, dh_part = [t[-1:] for t in ins], dh[-1:]
+            got = [t[-1:] for t in got]
+        plain_shape = [part[0].shape[0], XHOST_S]
+        want, plain_bwd = timed_once(lambda: scan_grads(plain, part, dh_part))
+        errs = []
+        for a, w in zip(got, want):
+            diff = float((a - w).abs().max())
+            errs.append(diff / max(float(w.abs().max()), 1.0))
+            worst = max(worst, diff)
+        log(f"  {kind}_scan backward (B={XHOST_B}, S={XHOST_S}; plain on "
+            f"{plain_shape[0]} row(s)): h and grads err / max(1, |plain|) "
+            f"{', '.join(f'{e:.1e}' for e in errs)} (tol {TOL}); rerun "
+            f"{'bitwise' if same else 'DIFFERENT'} [{card}]")
+        if max(errs) > TOL or not same:
+            raise AssertionError(f"{kind}_scan's gradients at (4, 4096) "
+                                 f"disagree with the plain version's or "
+                                 f"their rerun")
+        del got, want, part, dh_part, dh
+        torch.cuda.empty_cache()
+        for name, t in time_scan(kind, ins).items():
+            bwd = name.endswith("_bwd")
+            direction = "bwd" if bwd else "fwd"
+            row = dict(
+                name=name, route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{kind}_scan.cu",
+                replaces=("src/repro/models/recurrent.py:"
+                          + ("162" if kind == "mlstm" else "243")
+                          + " (jax.lax.scan; no Pallas counterpart)"),
+                max_abs_err=worst, shape=[XHOST_B, XHOST_S], **t,
+                plain_ms=plain_bwd if bwd else plain_fwd,
+                plain_shape=plain_shape if bwd else [XHOST_B, XHOST_S],
+                small_ms=small[name]["ms"],
+                small_bound_ms=small[name]["bound_ms"],
+                small_plain_ms=plain_small[direction], library_ms=None)
+            rows.append(row)
+            log(f"  {name} (B={XHOST_B}, S={XHOST_S}): {t['ms']:.3f} ms a "
+                f"launch (CUDA events; {t['call_ms']:.3f} ms a call alone), "
+                f"bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}); at (B={SCAN_B}, S={SCAN_S}) "
+                f"{small[name]['ms']:.3f} ms (bound "
+                f"{small[name]['bound_ms']:.4f}) against "
+                f"{row['small_plain_ms']:.3f} ms plain; plain at (B="
+                f"{row['plain_shape'][0]}, S={XHOST_S}) {row['plain_ms']:.1f}"
+                f" ms; library call: none [{card}]")
+        del ins
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2289,7 +2550,7 @@ def run_telemetry(card: str, main: dict) -> dict:
 
 
 HOST_SCHEMES = ("proposed", "gba", "fpr:0.3", "exhaustive", "ideal")
-SV_ROUNDS, REF_HOST_ROUNDS = 20, 2
+SV_ROUNDS, REF_HOST_ROUNDS = 8, 2
 
 
 def run_host_reference(card: str) -> dict:
@@ -3455,10 +3716,20 @@ def run_xlstm_fleet(card: str, floor_ms: float) -> tuple[dict, dict]:
     regime = norms_regime("xlstm-125m float32 (17a's ranking)", ranked,
                           blocks, 20, 3, floor_ms, card)
     del ranked
+    counters = scan_counts()
+    for fn in counters.values():
+        fn.launches = 0
     _, metrics, walls, steps, _ = drive(sim, "xlstm round", card)
     check_steps("xlstm round", steps, {"fleet_fused_grads": 0,
                                        "tile_norms": 1})
     counts = fleet_counts()
+    scans = {k: fn.launches for k, fn in counters.items()}
+    log(f"  xlstm-125m fleet: scan launches {json.dumps(scans)} over "
+        f"{XLSTM_ROUNDS} rounds (the clients' gradients under "
+        f"torch.func.vmap) [{card}]")
+    if min(scans.values()) == 0:
+        raise AssertionError("xlstm-125m fleet: a scan kernel never ran")
+    counts["scans"] = scans
     log(f"  xlstm-125m fleet: walls {fmt_walls(walls)}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
     rerun_bitwise(cfg, "sync", metrics["loss"].cpu().tolist(),
@@ -3466,6 +3737,105 @@ def run_xlstm_fleet(card: str, floor_ms: float) -> tuple[dict, dict]:
     del sim
     torch.cuda.empty_cache()
     return counts, regime
+
+
+def scan_counts() -> dict:
+    from repro_torch.kernels import mlstm_scan as MS
+    from repro_torch.kernels import slstm_scan as SS
+    return {"mlstm_scan": MS.mlstm_scan, "mlstm_scan_bwd": MS.mlstm_scan_bwd,
+            "slstm_scan": SS.slstm_scan, "slstm_scan_bwd": SS.slstm_scan_bwd}
+
+
+def profile_scan_share(step, card: str) -> None:
+    """One more warm host step under torch.profiler: the scan kernels'
+    share of its device time, by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ANNOTATIONS]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        log("  profiled xlstm host step: device time not measured (no CUDA "
+            "events)")
+        return
+    by = {name: sum(e.self_device_time_total for e in kernels
+                    if any(k in e.key for k in ks)) / 1e3
+          for name, ks in SCAN_KERNELS.items()}
+    scans = sum(by.values())
+    log(f"  profiled xlstm host step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}%), the scan kernels "
+        f"{scans:.1f} ms ({100 * scans / busy:.1f}% of the device time: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in by.items()) + f") [{card}]")
+
+
+def run_xlstm_host(card: str) -> dict:
+    """17a's host step: xlstm-125m at full width (bfloat16 params from a
+    seed, its config's ``remat="block"``) through the launcher's host
+    step (Adam at ``FULL_LR`` after clipping), ``XHOST_STEPS`` steps on
+    one (4, 4096) batch of TokenStream tokens, launch counts zeroed just
+    before: the loss finite and falling, each scan kernel launched ``XSCAN_PER_STEP``
+    times a step, a rerun bitwise (losses and params); ms a warm step,
+    peak memory, and a profiled step's share of the scan kernels.
+    Returns the first run's launches by kernel."""
+    import numpy as np
+    import torch
+    from repro_torch import optimizers
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import model as M
+    cfg = get_config("xlstm-125m")
+    if cfg.remat != "block":
+        raise AssertionError(f"xlstm-125m's remat is {cfg.remat!r}")
+    # one batch, every step: its loss must fall whatever the stream's
+    # statistics (3 steps over fresh TokenStream batches need not)
+    batches = host_batches(cfg.vocab_size, XHOST_B, XHOST_S, 1,
+                           CARD) * XHOST_STEPS
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = model_params(cfg, P18_SEED + 3)
+    counters = scan_counts()
+    for fn in counters.values():
+        fn.launches = 0
+    params, losses, walls = host_run(cfg, start, batches)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    peak = fmt_peak(base)
+    log(f"  xlstm-125m: {M.param_count(start)} params {cfg.param_dtype}, "
+        f"remat {cfg.remat!r}; host step at B = {XHOST_B}, S = {XHOST_S}: "
+        f"losses {[round(x, 4) for x in losses]}, walls "
+        f"{[round(w, 1) for w in walls]} ms, peak device memory {peak}; "
+        f"scan launches {json.dumps(counts)} over {XHOST_STEPS} steps "
+        f"[{card}]")
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"xlstm-125m host losses do not fall: {losses}")
+    want = {k: n * XHOST_STEPS for k, n in XSCAN_PER_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"xlstm-125m host step: scan launches {counts},"
+                             f" not {want}")
+    del start
+    again, losses2, walls2 = host_run(cfg, model_params(cfg, P18_SEED + 3),
+                                      batches)
+    if losses2 != losses or not trees_equal(again, params):
+        raise AssertionError("xlstm-125m host step: rerun differs")
+    log(f"  xlstm-125m host step: rerun losses and params bitwise equal; "
+        f"{float(np.median(walls[1:] + walls2[1:])):.1f} ms a warm step "
+        f"(median of {2 * XHOST_STEPS - 2}; first {walls[0]:.1f} ms) "
+        f"[{card}]")
+    del again
+    opt = optimizers.adam()
+    state, step = opt.init(params), TRAIN.make_host_step(cfg, opt, FULL_LR)
+    profile_scan_share(lambda: step(params, state, batches[0]), card)
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return counts
 
 
 def run_p17_model(name: str, seed: int, card: str) -> None:
@@ -3494,16 +3864,17 @@ def run_p17_model(name: str, seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def run_phase17(card: str, floor_ms: float) -> tuple[dict, dict]:
+def run_phase17(card: str, floor_ms: float) -> tuple:
     """Phase 17; returns 17a's fleet launches and its ranking's tile-norm
-    figures."""
-    fleet = None
+    figures, and 17a's host step's scan launches."""
+    fleet = scans = None
     for i, name in enumerate(P17):
         phase(f"  [17{'abcde'[i]}] {name}")
         run_p17_model(name, DEC_SEED + 20 + 2 * i, card)
         if name == "xlstm-125m":
             fleet = run_xlstm_fleet(card, floor_ms)
-    return fleet
+            scans = run_xlstm_host(card)
+    return fleet, scans
 
 
 # ---------------------------------------------------------------------------
@@ -5170,21 +5541,21 @@ def decode_gates(out: str) -> None:
                                  f"{dims}, not {DECODE_ROWS} rows a chip")
 
 
-def train_gate(out: str) -> None:
-    """21b's gate on the qwen2-7b train_4k row: its peak (``hbm=``) under
+def train_gate(out: str, arch: str = "qwen2-7b") -> None:
+    """21b's gate on a train_4k row: its peak (``hbm=``) under
     ``TRAIN_PEAK_GIB``."""
     import re
-    peak = re.search(r"OK   qwen2-7b .*hbm= *([0-9.]+)GiB", out)
+    peak = re.search(rf"OK   {arch} .*hbm= *([0-9.]+)GiB", out)
     if peak is None or float(peak.group(1)) >= TRAIN_PEAK_GIB:
-        raise AssertionError(f"qwen2-7b train_4k: peak "
+        raise AssertionError(f"{arch} train_4k: peak "
                              f"{peak and peak.group(1)} GiB, not under "
                              f"{TRAIN_PEAK_GIB}")
 
 
 def start_dryruns() -> dict:
     """21b's processes, started together, each with no card: the dry runs
-    of smollm-135m decode_32k and qwen2-7b train_4k, the fleet dry run
-    and ``diagnose`` of qwen2-7b decode_32k.  Fails if the fake group or
+    of smollm-135m decode_32k, qwen2-7b train_4k and xlstm-125m train_4k,
+    the fleet dry run and ``diagnose`` of qwen2-7b decode_32k.  Fails if the fake group or
     ``FakeTensorMode`` is missing.  ``finish_dryruns`` reads them."""
     import os
     try:
@@ -5203,6 +5574,8 @@ def start_dryruns() -> dict:
     runs = {"combo": dryrun + ["--arch", "smollm-135m", "--shape",
                                "decode_32k"],
             "train": dryrun + ["--arch", "qwen2-7b", "--shape", "train_4k"],
+            "xtrain": dryrun + ["--arch", "xlstm-125m", "--shape",
+                                "train_4k"],
             "decode": ["-m", "repro_torch.launch.diagnose", "--arch",
                        "qwen2-7b", "--shape", "decode_32k"],
             "fleet": dryrun + ["--fleet"]}
@@ -5225,7 +5598,8 @@ def stop_dryruns(started: dict) -> None:
 def finish_dryruns(started: dict) -> None:
     """21b: the output of ``start_dryruns``' processes printed.  Fails
     unless all exit 0 (the combos print OK and 0 failed), or if qwen2-7b's
-    steps miss ``decode_gates`` or ``train_gate``."""
+    steps miss ``decode_gates`` or ``train_gate``, or xlstm-125m's train
+    step ``train_gate``."""
     runs, procs = started["runs"], started["procs"]
     outs = {}
     try:
@@ -5240,17 +5614,19 @@ def finish_dryruns(started: dict) -> None:
         if procs[what].returncode != 0:
             raise AssertionError(f"dry run {runs[what]} exited "
                                  f"{procs[what].returncode}: {err[-3000:]}")
-    for what in ("combo", "train"):
+    for what in ("combo", "train", "xtrain"):
         if "OK   " not in outs[what][0] \
                 or "1 ok, 0 skipped, 0 failed" not in outs[what][0]:
             raise AssertionError(f"the dry run {runs[what]} did not print "
                                  f"OK and 0 failed")
     decode_gates(outs["decode"][0])
     train_gate(outs["train"][0])
+    train_gate(outs["xtrain"][0], "xlstm-125m")
     log(f"  qwen2-7b on 16 x 16: decode_32k peak <= {DECODE_PEAK_GIB} GiB "
         f"with no all-gather of a cache and {DECODE_ROWS} cache rows a "
-        f"chip; train_4k peak < {TRAIN_PEAK_GIB} GiB")
-    log(f"  the four dry runs done {time.perf_counter() - started['t0']:.1f}"
+        f"chip; train_4k peak < {TRAIN_PEAK_GIB} GiB; xlstm-125m train_4k "
+        f"finished, peak < {TRAIN_PEAK_GIB} GiB")
+    log(f"  the five dry runs done {time.perf_counter() - started['t0']:.1f}"
         f" s after their start (wall, run together)")
 
 
@@ -5331,6 +5707,7 @@ def main(argv: list) -> int:
                   check_matmul(card, transpose=True),
                   check_decode(card), check_prefill(card)]
     torch.cuda.empty_cache()
+    scan_rows = check_scans(card)
 
     phase("[4] main path")
     _, counts, main = run_main_path(card)
@@ -5397,8 +5774,12 @@ def main(argv: list) -> int:
     rows[1]["served_launches"] = p16["served"]["tile_norms"]
 
     phase("[17] the recurrent, MLA and memory models at full width")
-    p17, xlstm = run_phase17(card, rows[1]["launch_floor_ms"])
+    (p17, xlstm), scan_launches = run_phase17(card,
+                                              rows[1]["launch_floor_ms"])
     rows[1]["xlstm_fleet_launches"] = p17["tile_norms"]
+    for row in scan_rows:
+        row["launches"] = scan_launches[row["name"]]
+        row["fleet_launches"] = p17["scans"][row["name"]]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
                                  xlstm["max_abs_err"])
     rows[1].update({f"xlstm_{k}": v for k, v in xlstm.items()
@@ -5436,7 +5817,7 @@ def main(argv: list) -> int:
             row["fleet_mesh_launches"] = mesh_launches[row["name"]]
         phase("  [20b] a million clients over four cards")
         run_fleet_mesh_full(card)
-        rows += serve_rows
+        rows += serve_rows + scan_rows
 
         phase("[21] the dry run and the roofline")
         phase("  [21a] 18b's host step as a roofline share")

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("block_norms", "fleet_fused", "block_sparse_matmul",
-           "decode_attention", "flash_prefill")
+           "decode_attention", "flash_prefill", "mlstm_scan", "slstm_scan")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

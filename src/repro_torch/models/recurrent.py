@@ -7,10 +7,12 @@ associative scan of the combine ``(a_l a_r, a_r b_l + b_r)`` with ``h0``
 folded into step 0 (``_linear_scan``: 2 log2(S) levels of whole-tensor
 ops, not a step a position); it associates its products differently from
 the reference's ``associative_scan`` (float32 1e-5, float64 1e-10).  The
-(s/m)LSTM cells, ``lax.scan`` in the reference, step through time in
-order as a loop of the same cell, the reference's arithmetic step for
-step.  Gates and states are float32 as in the
-reference, and mixed operands promote as JAX promotes them.
+(s/m)LSTM cells, ``lax.scan`` in the reference, run over the whole
+sequence as one op each way (``kernels.mlstm_scan`` / ``kernels.
+slstm_scan``): on the CPU the cell stepped in order, the reference's
+arithmetic step for step, and its autograd; on the card a CUDA kernel a
+direction.  Gates and states are float32 as in the reference, and mixed
+operands promote as JAX promotes them.
 
 State conventions (decode), the reference's:
   conv:   {"buf": (B, width-1, d)}         — last width-1 inputs
@@ -26,17 +28,18 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import mlstm_scan as MS
+from repro_torch.kernels import slstm_scan as SS
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as S
 
 _SQRT_EPS = 1e-8
 _RG_C = 8.0
 
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """log(1 + e^x) without ``F.softplus``'s switch to the identity above
-    its threshold (``jax.nn.softplus`` is exact)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+# the cells and softplus live beside the scans' kernels
+_softplus = MS.softplus
+_mlstm_cell = MS.mlstm_cell
+_slstm_cell = SS.slstm_cell
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +138,7 @@ def rglru(p: dict, x: torch.Tensor, h0: Optional[torch.Tensor] = None
           ) -> torch.Tensor:
     """Full-sequence RG-LRU, h_t = a_t h_{t-1} + b_t from ``h0`` (0 if
     None), as an associative scan (``_linear_scan``) on each rank's batch
-    rows.  x: (B,S,d)."""
+    rows, split over the mesh dims that hold them whole.  x: (B,S,d)."""
     a, b = _rglru_coeffs(p, x)
 
     def scan(a, b, *h0):
@@ -195,43 +198,17 @@ def _mlstm_gates(p: dict, x: torch.Tensor):
     return q, k, v, i_pre, f_pre, o
 
 
-def _mlstm_cell(carry, inp):
-    """One stabilised mLSTM step.  carry: (C, n, m); returns (carry, h)."""
-    c_mat, n_vec, m = carry
-    q, k, v, i_pre, f_pre = inp
-    hd = q.shape[-1]
-    log_f = -_softplus(-f_pre)                # log sigmoid(f~)
-    m_new = torch.maximum(log_f + m, i_pre)
-    f_eff = torch.exp(log_f + m - m_new)      # (B,H)
-    i_eff = torch.exp(i_pre - m_new)
-    k_scaled = k * (hd ** -0.5)
-    c_new = f_eff[..., None, None] * c_mat \
-        + i_eff[..., None, None] * (v[..., :, None] * k_scaled[..., None, :])
-    n_new = f_eff[..., None] * n_vec + i_eff[..., None] * k_scaled
-    num = torch.einsum("bhvk,bhk->bhv", c_new, q)
-    den = torch.clamp_min(torch.abs(torch.einsum("bhk,bhk->bh", n_new, q)),
-                          1.0)
-    return (c_new, n_new, m_new), num / den[..., None]
-
-
 def mlstm(p: dict, x: torch.Tensor, state: Optional[dict] = None
           ) -> torch.Tensor:
-    """Full-sequence mLSTM, the cell stepped over time.  x: (B,S,d_in)."""
+    """Full-sequence mLSTM, one scan op over every position (on each
+    rank's batch rows, split over the mesh dims that hold them whole).
+    x: (B,S,d_in)."""
     q, k, v, i_pre, f_pre, o = _mlstm_gates(p, x)
     b, s, h, hd = q.shape
     if state is None:
         state = init_mlstm_state(b, h, hd, x.device)
-
-    def scan(q, k, v, i_pre, f_pre, *carry):
-        hs = []
-        for t in range(s):
-            carry, ht = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t],
-                                            i_pre[:, t], f_pre[:, t]))
-            hs.append(ht)
-        return torch.stack(hs, dim=1)           # (B,S,H,hd)
-
-    hs = S.batch_local(scan, q, k, v, i_pre, f_pre, state["C"], state["n"],
-                       state["m"])
+    hs = S.batch_local(MS.mlstm_scan, q, k, v, i_pre, f_pre, state["C"],
+                       state["n"], state["m"])   # (B,S,H,hd)
     out = S.merge_heads(S.split_heads(o, h) * hs)
     return out.to(x.dtype)
 
@@ -269,30 +246,6 @@ def init_slstm(generator, d_in: int, num_heads: int, head_dim: int,
     return p
 
 
-def _slstm_cell(p: dict, carry, inp):
-    """carry: (c, n, m, h) each (B,H,hd); inp: pre-activations (B,H,hd) x4.
-    The recurrence matrices are rounded to float32, then take h's dtype
-    (JAX's promotion of a float32 operand)."""
-    c, n, m, h = carry
-    z_pre, i_pre, f_pre, o_pre = inp
-
-    def rec(r, h_):
-        return torch.einsum("bhk,hkv->bhv", h_, _f32(r).to(h_.dtype))
-
-    z = torch.tanh(z_pre + rec(p["r_z"], h))
-    i_t = i_pre + rec(p["r_i"], h)
-    f_t = f_pre + rec(p["r_f"], h)
-    o = torch.sigmoid(o_pre + rec(p["r_o"], h))
-    log_f = -_softplus(-f_t)
-    m_new = torch.maximum(log_f + m, i_t)
-    f_eff = torch.exp(log_f + m - m_new)
-    i_eff = torch.exp(i_t - m_new)
-    c_new = f_eff * c + i_eff * z
-    n_new = torch.clamp_min(f_eff * n + i_eff, 1e-6)
-    h_new = o * c_new / n_new
-    return (c_new, n_new, m_new, h_new), h_new
-
-
 def _slstm_pre(p: dict, x: torch.Tensor, num_heads: int):
     def heads(t):
         return _f32(S.split_heads(t, num_heads))
@@ -302,25 +255,22 @@ def _slstm_pre(p: dict, x: torch.Tensor, num_heads: int):
 
 def slstm(p: dict, x: torch.Tensor, state: Optional[dict] = None
           ) -> torch.Tensor:
-    """Full-sequence sLSTM. x: (B,S,d_in) -> (B,S,H*hd)."""
+    """Full-sequence sLSTM, one scan op over every position (on each
+    rank's batch rows, split over the mesh dims that hold them whole; the
+    recurrence matrices, rounded to float32 as the cell rounds them, are
+    shared).  x: (B,S,d_in) -> (B,S,H*hd)."""
     num_heads = p["r_z"].shape[0]
     z, i, f, o = _slstm_pre(p, x, num_heads)
     b, s, h, hd = z.shape
     if state is None:
         state = init_slstm_state(b, h, hd, x.device)
-    names = ("r_z", "r_i", "r_f", "r_o")
 
     def scan(z, i, f, o, c, n, m, h, *rec):
-        pr = dict(zip(names, rec))
-        carry, hs = (c, n, m, h), []
-        for t in range(s):
-            carry, ht = _slstm_cell(pr, carry, (z[:, t], i[:, t], f[:, t],
-                                                o[:, t]))
-            hs.append(ht)
-        return torch.stack(hs, dim=1)
+        return SS.slstm_scan(torch.stack([z, i, f, o], dim=3),
+                             torch.stack(rec, dim=1), c, n, m, h)
 
     hs = S.batch_local(scan, z, i, f, o, state["c"], state["n"], state["m"],
-                       state["h"], shared=[p[name] for name in names])
+                       state["h"], shared=[_f32(p[name]) for name in SS.GATES])
     return S.merge_heads(hs).to(x.dtype)
 
 

@@ -364,15 +364,19 @@ def unbind(x):
 
 def batch_local(fn, *tensors, shared=()):
     """``fn(*tensors, *shared)`` on each rank's rows of the batch (dim 0
-    of every tensor of ``tensors``) when any is a DTensor: each is
-    redistributed to the first DTensor's shards of dim 0 (its other mesh
-    dims replicated; a plain tensor counts as replicated), each of
-    ``shared`` to ``Replicate``, ``fn`` runs on the local tensors, and
-    the tensor it returns (batch on dim 0) comes back as a DTensor with
-    those placements.  ``fn`` must treat batch rows independently: a
-    time loop (the recurrent mixers) then runs as plain ops on local
-    shards, as it would in ``shard_map``, not as a DTensor op a step.
-    Without DTensors, ``fn(*tensors, *shared)``."""
+    of every tensor of ``tensors``) when any is a DTensor: the rows are
+    split as the first DTensor's dim 0 is, and also over each mesh dim
+    that holds them whole where a rank's rows divide evenly (a scan's
+    work, which the reference's SPMD partitioner spreads over "model"
+    too); each of ``tensors`` is redistributed to that split (a plain
+    tensor counts as replicated), each of ``shared`` to ``Replicate``,
+    ``fn`` runs on the local tensors, and the tensor it returns (batch
+    on dim 0) comes back as a DTensor gathered to the first DTensor's
+    shards of dim 0 (its other mesh dims replicated).  ``fn`` must treat
+    batch rows independently: a time loop (the recurrent mixers) then
+    runs as plain ops on local shards, as it would in ``shard_map``, not
+    as a DTensor op a step.  Without DTensors, ``fn(*tensors,
+    *shared)``."""
     first = next((t for t in tensors + tuple(shared)
                   if isinstance(t, DTensor)), None)
     if first is None:
@@ -381,20 +385,28 @@ def batch_local(fn, *tensors, shared=()):
     lead = next((t for t in tensors if isinstance(t, DTensor)), first)
     rows = [Shard(0) if type(p) is Shard and p.dim == 0 else Replicate()
             for p in lead.placements]
+    work = list(rows)
+    n = tensors[0].shape[0] // math.prod(
+        mesh.size(i) for i, r in enumerate(rows) if r == Shard(0))
+    for i, r in enumerate(rows):
+        if r != Shard(0) and n % mesh.size(i) == 0:
+            work[i] = Shard(0)
+            n //= mesh.size(i)
     whole = [Replicate()] * mesh.ndim
 
     # a shared tensor's grad from each rank's rows is a partial sum
-    summed = [Partial() if r == Shard(0) else Replicate() for r in rows]
+    summed = [Partial() if r == Shard(0) else Replicate() for r in work]
 
     def local(t, places, grads):
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, whole, run_check=False)
         return t.redistribute(mesh, places).to_local(grad_placements=grads)
 
-    out = fn(*[local(t, rows, rows) for t in tensors],
+    out = fn(*[local(t, work, work) for t in tensors],
              *[local(t, whole, summed) for t in shared])
-    return _from_local(out, mesh, rows,
-                       (tensors[0].shape[0],) + tuple(out.shape[1:]))
+    out = _from_local(out, mesh, work,
+                      (tensors[0].shape[0],) + tuple(out.shape[1:]))
+    return out if work == rows else out.redistribute(mesh, rows)
 
 
 def _first_mesh(*tensors):
