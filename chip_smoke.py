@@ -139,8 +139,9 @@ Phases (any failure exits non-zero and prints no result line):
                rounds: falling loss, rising R^2, rerun bitwise; (b)
                smollm-135m at full width in float32 trained by the fleet
                (TransformerTask, 4 x 8 clients, sequences of 16, batch 2,
-               3 rounds; its clients run without remat, as
-               TransformerTask's always do): finite losses, one grouped
+               3 rounds; its clients run without remat, as the fleet
+               engine's always do, ``TransformerTask.client_task``):
+               finite losses, one grouped
                ranking of its 10 leaves a round, no fused launch, the
                wireless model pricing
                32 x param_count bits, rerun bitwise, peak device memory, a
@@ -288,12 +289,14 @@ Phases (any failure exits non-zero and prints no result line):
                — (a) phase 18b's warm host step at smollm-135m's full
                width as a roofline share: ``model_flops`` of its B x S
                tokens (6 N D) over (ms x 989 TFLOP/s, the bfloat16
-               peak), beside the card's name and power limit; (b) in five
+               peak), beside the card's name and power limit; (b) in six
                processes of their own, started together with phase 20
                (no card,
                ``CUDA_VISIBLE_DEVICES`` empty), ``python -m
                repro_torch.launch.dryrun --arch smollm-135m --shape
-               decode_32k``, ``--arch qwen2-7b --shape train_4k`` and
+               decode_32k``, ``--arch qwen2-7b --shape train_4k``, the
+               same with ``--fl`` (the pruned-FL step, which trains the
+               config's remat "block") and
                ``--arch xlstm-125m --shape train_4k`` (a fake group of
                256 ranks, the step traced on the 16 x 16 mesh under
                ``FakeTensorMode``), ``--fleet`` (512 ranks,
@@ -304,9 +307,34 @@ Phases (any failure exits non-zero and prints no result line):
                ``FakeTensorMode`` is missing, if the qwen2-7b decode's
                peak exceeds 8 GiB a chip, an all-gather is among its
                biggest tensors or a stacked cache holds more than a data
-               shard's 8 rows, or if either train step's peak is not
+               shard's 8 rows, or if any train step's peak is not
                under 70 GiB.
                ``--phase21`` runs phases 1 and 21b.
+ 22. the example entry points (``repro_torch.examples``) as users run
+               them, nine processes of their own started together
+               (``PYTHONPATH=src``, each with a timeout):
+               ``python -m repro_torch.examples.tradeoff_playground
+               --sweep lambda --seeds 2`` and, through
+               ``EXAMPLE_RUNNER`` (the module's ``main`` as ``python -m``
+               calls it, then its summary, launch counts and the card's
+               peak memory as JSON), ``quickstart`` on the card and with
+               ``--device cpu``, ``train_federated --rounds 4``,
+               ``fleet_sim --kernel fused --rounds 5`` (16 x 64 clients,
+               the paper's MLP at full width), ``fleet_sim --smoke
+               --async``, ``fleet_sim --task transformer --smoke`` with
+               ``--metrics-out``, ``--telemetry-out`` and
+               ``--trace-out``, ``pruned_llm_federated --rounds 3`` and
+               ``serve_pruned --rounds 2 --steps 16``: each exits 0 and
+               prints its summary (printed here), each but the table
+               and the CPU quickstart on the card; quickstart's rho and
+               B on the card bitwise the CPU run's; the fused fleet
+               launches the fused-gradient and tile-norm kernels,
+               ``serve_pruned`` decode attention (prompts go through
+               decode steps, as the reference script's ``generate``
+               does: no flash prefill) and prints equal gather and
+               dense tokens; the files parse
+               (the metrics JSON with the reference script's keys).
+               ``--phase22`` runs phases 1, 2 and 22.
 Phase 5 also compares hex, two-tier sync and async, Dirichlet and
 streaming fleets card against CPU.  Phases 7-12 print each round or
 event's wall (control, apply), loss, participants and launches, and rerun
@@ -327,7 +355,9 @@ two ranks', and ``fl_block16_*``, the tile norms on 18c's ranking; row 2
 ``tp_shard_*``, the tile norms on rank (0, 0)'s local shards at block
 16; the fleet rows ``fleet_mesh_launches``, phase 20a's four ranks'
 over both paths; the four scan rows ``launches``, 17a's host step's, and
-``fleet_launches``, 17a's fleet's).  A row's ``ms`` is a
+``fleet_launches``, 17a's fleet's; the fleet and serving rows
+``examples_launches``, phase 22's ``fleet_sim --kernel fused``'s and
+``serve_pruned``'s).  A row's ``ms`` is a
 ``torch.profiler`` device time, except the four scan rows', which are
 CUDA-event times over back-to-back launches (see ``time_scan``); the
 last line is the device JSON.
@@ -2746,16 +2776,17 @@ def run_lm(card: str):
     profile_round(sim, carry, cfg.rounds - 1, card, "smollm round")
 
     # the generic path alone (warm from the rounds): the 32 clients'
-    # gradients after one ranking
+    # gradients after one ranking, by the task the engine's clients train
+    # (``sim.task``: the model without remat)
     params = carry[0]
     n = cfg.topology.num_clients
     rho = torch.linspace(0.0, 0.7, n, device="cuda")
     w = torch.ones(n, device="cuda")
     batch = sim.data.block(0, n)
-    prep = task.kernel_prepare(params)
+    prep = sim.task.kernel_prepare(params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    task.kernel_grads(params, prep, batch, rho, w)
+    sim.task.kernel_grads(params, prep, batch, rho, w)
     torch.cuda.synchronize()
     per_client = (time.perf_counter() - t0) * 1e3 / n
     log(f"  generic path (kernel_grads): {per_client:.3f} ms a client over "
@@ -4564,7 +4595,9 @@ from repro_torch.models import model as M
 MESH.gloo_cuda_all_gather()
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
-# rematerialized as the full config is: checkpointed DTensor steps
+# remat "block", as the full config's: the FL step trains the model's
+# own remat (TransformerTask.config), so each repeat is a checkpointed
+# DTensor step
 cfg = get_config("qwen2-7b").smoke_variant().replace(remat="block")
 gen = torch.Generator().manual_seed(spec["seed"])
 params = M.init_params(cfg, gen)
@@ -4770,7 +4803,9 @@ def run_tp_smoke(card: str, floor_ms: float) -> tuple[int, dict]:
 def tp_rank_main(out: str) -> int:
     """19b, one rank: qwen2-7b at full width in bfloat16 from a seed
     through ``make_fl_train_step(tp_shard_params=True)`` on ("data" 2,
-    "model" 2), block 128; rank 0 writes the figures to ``out``."""
+    "model" 2), block 128, at the config's ``remat="block"`` (the FL step
+    trains the model's own remat: each repeat checkpointed); rank 0
+    writes the figures to ``out``."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -4825,6 +4860,8 @@ def tp_rank_main(out: str) -> int:
 
     res = {"rank": rank}
     cfg = get_config("qwen2-7b")
+    if cfg.remat != "block":
+        raise AssertionError(f"qwen2-7b's remat is {cfg.remat!r}")
     tokens = torch.as_tensor(TokenStream(cfg.vocab_size, seed=P19_SEED)
                              .sample(2 * TP_BATCH, TP_SEQ),
                              dtype=torch.int64, device=dev)
@@ -5513,8 +5550,9 @@ def host_roofline_share(ms: float, card: str) -> None:
 
 # 21b's gates on qwen2-7b's production-mesh steps (16 x 16, a chip's
 # figures): the decode_32k step's peak (live + arguments), and the
-# train_4k step's (an H100 holds 80 GB; rematerialization and the local
-# decode put them at ~23 and ~5.3 GiB)
+# train_4k steps' (an H100 holds 80 GB; the config's remat="block" and
+# the local decode put them at ~23 and ~5.3 GiB; the FL step keeps the
+# model's remat too, ~22 GiB)
 DECODE_PEAK_GIB, TRAIN_PEAK_GIB = 8.0, 70.0
 DECODE_ROWS = 128 // 16            # decode_32k's batch rows a "data" shard
 
@@ -5554,8 +5592,9 @@ def train_gate(out: str, arch: str = "qwen2-7b") -> None:
 
 def start_dryruns() -> dict:
     """21b's processes, started together, each with no card: the dry runs
-    of smollm-135m decode_32k, qwen2-7b train_4k and xlstm-125m train_4k,
-    the fleet dry run and ``diagnose`` of qwen2-7b decode_32k.  Fails if the fake group or
+    of smollm-135m decode_32k, qwen2-7b train_4k (the plain step and the
+    pruned-FL step, ``--fl``) and xlstm-125m train_4k, the fleet dry run
+    and ``diagnose`` of qwen2-7b decode_32k.  Fails if the fake group or
     ``FakeTensorMode`` is missing.  ``finish_dryruns`` reads them."""
     import os
     try:
@@ -5574,6 +5613,8 @@ def start_dryruns() -> dict:
     runs = {"combo": dryrun + ["--arch", "smollm-135m", "--shape",
                                "decode_32k"],
             "train": dryrun + ["--arch", "qwen2-7b", "--shape", "train_4k"],
+            "fltrain": dryrun + ["--arch", "qwen2-7b", "--shape", "train_4k",
+                                 "--fl"],
             "xtrain": dryrun + ["--arch", "xlstm-125m", "--shape",
                                 "train_4k"],
             "decode": ["-m", "repro_torch.launch.diagnose", "--arch",
@@ -5598,8 +5639,8 @@ def stop_dryruns(started: dict) -> None:
 def finish_dryruns(started: dict) -> None:
     """21b: the output of ``start_dryruns``' processes printed.  Fails
     unless all exit 0 (the combos print OK and 0 failed), or if qwen2-7b's
-    steps miss ``decode_gates`` or ``train_gate``, or xlstm-125m's train
-    step ``train_gate``."""
+    steps miss ``decode_gates`` or ``train_gate`` (its plain and its FL
+    train step), or xlstm-125m's train step ``train_gate``."""
     runs, procs = started["runs"], started["procs"]
     outs = {}
     try:
@@ -5614,20 +5655,198 @@ def finish_dryruns(started: dict) -> None:
         if procs[what].returncode != 0:
             raise AssertionError(f"dry run {runs[what]} exited "
                                  f"{procs[what].returncode}: {err[-3000:]}")
-    for what in ("combo", "train", "xtrain"):
+    for what in ("combo", "train", "fltrain", "xtrain"):
         if "OK   " not in outs[what][0] \
                 or "1 ok, 0 skipped, 0 failed" not in outs[what][0]:
             raise AssertionError(f"the dry run {runs[what]} did not print "
                                  f"OK and 0 failed")
     decode_gates(outs["decode"][0])
     train_gate(outs["train"][0])
+    train_gate(outs["fltrain"][0])
     train_gate(outs["xtrain"][0], "xlstm-125m")
     log(f"  qwen2-7b on 16 x 16: decode_32k peak <= {DECODE_PEAK_GIB} GiB "
         f"with no all-gather of a cache and {DECODE_ROWS} cache rows a "
-        f"chip; train_4k peak < {TRAIN_PEAK_GIB} GiB; xlstm-125m train_4k "
-        f"finished, peak < {TRAIN_PEAK_GIB} GiB")
-    log(f"  the five dry runs done {time.perf_counter() - started['t0']:.1f}"
+        f"chip; train_4k peak < {TRAIN_PEAK_GIB} GiB, its FL step's too; "
+        f"xlstm-125m train_4k finished, peak < {TRAIN_PEAK_GIB} GiB")
+    log(f"  the six dry runs done {time.perf_counter() - started['t0']:.1f}"
         f" s after their start (wall, run together)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the example entry points
+# ---------------------------------------------------------------------------
+
+EXAMPLE_TIMEOUT = 300
+# the reference script's --metrics-out keys (examples/fleet_sim.py's doc)
+FLEET_METRIC_KEYS = {"task", "kernel", "mode", "clients", "rounds",
+                     "host_seconds", "losses", "accuracy", "wall_clock_s",
+                     "mean_prune", "bound_final"}
+# what each entry point prints last, or near it
+EXAMPLE_MARKERS = {
+    "quickstart": "Theorem 1 bound after S=200",
+    "tradeoff_playground": "sumB_MHz",
+    "train_federated": "Theorem-1 bound:",
+    "fleet_sim": "Theorem-1 bound on realized averages",
+    "pruned_llm_federated": "done; final loss",
+    "serve_pruned": "block-sparse tokens == dense tokens"}
+
+# An entry point's main() as ``python -m repro_torch.examples.<name>``
+# calls it (its arguments in sys.argv), then its returned summary, the
+# kernels' launch counts and the card's peak memory as JSON
+EXAMPLE_RUNNER = r"""
+import importlib, json, sys
+out, name = sys.argv[1:3]
+sys.argv = ["repro_torch.examples." + name] + sys.argv[3:]
+summary = importlib.import_module("repro_torch.examples." + name).main()
+import torch
+from repro_torch.kernels import (block_norms, block_sparse_matmul,
+                                 decode_attention, flash_prefill, fleet_fused)
+counts = {"fleet_fused_grads": fleet_fused.fused_fleet_grads.launches,
+          "tile_norms": block_norms.tile_norms.launches,
+          "block_sparse_matmul": block_sparse_matmul.block_sparse_matmul.launches,
+          "block_sparse_matmul_t":
+              block_sparse_matmul.block_sparse_matmul_t.launches,
+          "decode_attention": decode_attention.decode_attention.launches,
+          "flash_prefill": flash_prefill.flash_prefill.launches}
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() \
+    else 0
+with open(out, "w") as f:
+    json.dump({"summary": summary, "counts": counts, "cuda_peak": peak}, f)
+"""
+
+
+def example_runs(tmp: str) -> dict:
+    """Phase 22's runs: {label: (module, arguments)}."""
+    return {
+        "tradeoff": ("tradeoff_playground",
+                     ["--sweep", "lambda", "--seeds", "2"]),
+        "quickstart": ("quickstart", []),
+        "quickstart_cpu": ("quickstart", ["--device", "cpu"]),
+        "train": ("train_federated", ["--rounds", "4"]),
+        "fleet_fused": ("fleet_sim", ["--kernel", "fused", "--rounds", "5"]),
+        "fleet_async": ("fleet_sim", ["--smoke", "--async"]),
+        "fleet_lm": ("fleet_sim", [
+            "--task", "transformer", "--smoke",
+            "--metrics-out", f"{tmp}/metrics.json",
+            "--telemetry-out", f"{tmp}/telemetry.jsonl",
+            "--trace-out", f"{tmp}/trace.json"]),
+        "pruned_llm": ("pruned_llm_federated", ["--rounds", "3"]),
+        "serve": ("serve_pruned", ["--rounds", "2", "--steps", "16",
+                                   "--out", f"{tmp}/bundle.npz"]),
+    }
+
+
+def check_example_files(tmp: str, rounds: int) -> None:
+    """The transformer smoke's files: the metrics JSON with exactly the
+    reference script's keys and ``rounds`` losses, a header and a record
+    a round in the JSONL telemetry, and the trace's three run spans."""
+    with open(f"{tmp}/metrics.json") as f:
+        doc = json.load(f)
+    if set(doc) != FLEET_METRIC_KEYS or len(doc["losses"]) != rounds:
+        raise AssertionError(f"--metrics-out: keys {sorted(doc)}, "
+                             f"{len(doc.get('losses', []))} losses")
+    with open(f"{tmp}/telemetry.jsonl") as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    if len(records) != rounds + 1:
+        raise AssertionError(f"--telemetry-out: {len(records)} records, "
+                             f"not {rounds + 1}")
+    with open(f"{tmp}/trace.json") as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    if not {"fleet.build", "fleet.simulate", "fleet.finalize"} <= names:
+        raise AssertionError(f"--trace-out: spans {sorted(names)}")
+    log(f"  the files parse: metrics {len(doc)} keys (the reference's) and "
+        f"{rounds} losses, telemetry {len(records)} records, trace spans "
+        f"{sorted(names & ANNOTATIONS)}")
+
+
+def run_examples(card: str) -> dict:
+    """22: the six entry points of ``repro_torch.examples`` in processes
+    of their own, started together (``PYTHONPATH=src``, each with a
+    timeout): ``python -m repro_torch.examples.tradeoff_playground``
+    itself, the others' ``main`` through ``EXAMPLE_RUNNER``.  Every run
+    exits 0 and prints its summary; every run but the tradeoff table and
+    the CPU quickstart uses the card (its peak memory above 0);
+    quickstart's Algorithm-1 rho and B on the card equal its ``--device
+    cpu`` run's bit for bit (host float64); the fused fleet launches the
+    fused-gradient and tile-norm kernels, ``serve_pruned`` decode
+    attention (its ``generate`` feeds prompts through decode steps, so
+    no flash prefill) and prints equal gather and dense tokens; the
+    transformer smoke's files parse.  Returns
+    {label: launch counts}."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("WORLD_SIZE", None)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = example_runs(tmp)
+        procs = {}
+        for label, (name, args) in runs.items():
+            argv = ["-m", f"repro_torch.examples.{name}"] \
+                if label == "tradeoff" else \
+                ["-c", EXAMPLE_RUNNER, f"{tmp}/{label}.json", name]
+            procs[label] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, *argv, *args], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT)))
+        outs = {}
+        try:
+            for label, (start, proc) in procs.items():
+                so, se = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+                outs[label] = (proc.returncode, so, se,
+                               time.perf_counter() - start)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        results = {}
+        for label, (rc, so, se, wall) in outs.items():
+            name, args = runs[label]
+            log(f"  {name} {' '.join(args)}: exit {rc}, {wall:.1f} s "
+                f"(with start-up)")
+            for line in so.splitlines():
+                if line.strip():
+                    log(f"    {line}")
+            if rc != 0:
+                raise AssertionError(f"{name} {args} exited {rc}: "
+                                     f"{se[-3000:]}")
+            if EXAMPLE_MARKERS[name] not in so:
+                raise AssertionError(f"{name} {args} printed no summary")
+            if label != "tradeoff":
+                with open(f"{tmp}/{label}.json") as f:
+                    results[label] = json.load(f)
+        check_example_files(tmp, 10)
+    for label, res in results.items():
+        on_card = label != "quickstart_cpu"
+        if (res["cuda_peak"] > 0) != on_card:
+            raise AssertionError(f"{label}: card peak {res['cuda_peak']} "
+                                 f"bytes")
+    q, q_cpu = results["quickstart"]["summary"], \
+        results["quickstart_cpu"]["summary"]
+    for key in ("prune", "bandwidth"):
+        if q[key] != q_cpu[key]:
+            raise AssertionError(f"quickstart {key}: card {q[key]} != "
+                                 f"CPU {q_cpu[key]}")
+    counts = {label: res["counts"] for label, res in results.items()}
+    fused, serve = counts["fleet_fused"], counts["serve"]
+    if not (fused["fleet_fused_grads"] > 0 and fused["tile_norms"] > 0):
+        raise AssertionError(f"fleet_sim --kernel fused launched {fused}")
+    # serve_pruned decodes its prompts token by token (ServeEngine.
+    # generate, as the reference script does): no prefill wave, so flash
+    # prefill is not on its path
+    if not serve["decode_attention"] > 0:
+        raise AssertionError(f"serve_pruned launched {serve}")
+    if results["serve"]["summary"]["tokens"]["gather"] != \
+            results["serve"]["summary"]["tokens"]["dense"]:
+        raise AssertionError("serve_pruned: gather tokens != dense tokens")
+    log(f"  quickstart: rho and B on the card bitwise its --device cpu "
+        f"run's ({q['prune']}, {q['bandwidth']})")
+    for label in ("fleet_fused", "fleet_async", "fleet_lm", "pruned_llm",
+                  "serve"):
+        log(f"  {label} launches {counts[label]}")
+    log(f"  the nine runs done {time.perf_counter() - t0:.1f} s after "
+        f"their start (wall, run together) [{card}]")
+    return counts
 
 
 def main(argv: list) -> int:
@@ -5635,10 +5854,12 @@ def main(argv: list) -> int:
     device line, the tile-norm kernel's build and phase 19b alone (the
     four-card run); ``--phase20b`` likewise with both fleet kernels and
     phase 20b, and ``--phase20a`` with phase 20a (one card);
-    ``--phase21``: the device line and the dry runs (21b)."""
+    ``--phase21``: the device line and the dry runs (21b); ``--phase22``:
+    the device line, every kernel's build and the entry points (22)."""
     import torch
     only = argv[0] if argv in (["--phase19b"], ["--phase20a"],
-                               ["--phase20b"], ["--phase21"]) else None
+                               ["--phase20b"], ["--phase21"],
+                               ["--phase22"]) else None
     if argv and only is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -5670,7 +5891,8 @@ def main(argv: list) -> int:
     phase("[2] build")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    names = {"--phase19b": ("block_norms",), None: build.SOURCES}.get(
+    names = {"--phase19b": ("block_norms",), None: build.SOURCES,
+             "--phase22": build.SOURCES}.get(
         only, ("block_norms", "fleet_fused"))
     reports = build.build(names)
     for name in names:
@@ -5694,6 +5916,10 @@ def main(argv: list) -> int:
         phase("[20b] the fleet engine on a (2, 2) mesh over four cards, a "
               "million clients")
         run_fleet_mesh_full(card)
+        return 0
+    if only == "--phase22":
+        phase("[22] the example entry points")
+        run_examples(card)
         return 0
 
     phase("[3] kernels against their plain versions")
@@ -5826,6 +6052,13 @@ def main(argv: list) -> int:
         finish_dryruns(dryruns)
     finally:
         stop_dryruns(dryruns)
+
+    phase("[22] the example entry points")
+    examples = run_examples(card)
+    for row in rows[:2]:
+        row["examples_launches"] = examples["fleet_fused"][row["name"]]
+    for row in serve_rows:
+        row["examples_launches"] = examples["serve"][row["name"]]
 
     phase("[end]")
     print(json.dumps({"kernels": rows}))

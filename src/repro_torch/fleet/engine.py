@@ -1605,7 +1605,7 @@ def build_simulation(cfg: FleetConfig, mode: str = "sync", *,
     dev = resolve_device(device) if mesh is None else local_device(device)
     if mesh is not None and cfg.cloud_period >= 1:
         warnings.warn(_TWO_TIER_MESH_WARNING, stacklevel=2)
-    task = resolve_task(cfg)
+    task = resolve_task(cfg).client_task()
     geo = resolve_geometry(cfg)
     topo = cfg.topology
     partial = SCHED.draws_participation(cfg.schedule, topo.clients_per_cell)

@@ -106,6 +106,12 @@ class FleetTask(abc.ABC):
         once."""
         return pruning.block_norm_state(params, self.tile_grid(params))
 
+    def client_task(self) -> "FleetTask":
+        """The task as the fleet engine's clients train it (the engine's
+        ``build_simulation`` takes it; the FL step trains ``self``).  The
+        same loss values; a task may trade memory for time here."""
+        return self
+
     def kernel_grads(self, params: PyTree, prep, batch: PyTree,
                      rho: torch.Tensor, weights: torch.Tensor
                      ) -> tuple[PyTree, torch.Tensor]:
@@ -292,15 +298,17 @@ class TransformerTask(FleetTask):
 
     The model is ``arch`` or, when it is None, ``arch_name``'s smoke-size
     reduction (``_default_arch``); its params keep the config's parameter
-    dtype whatever the run's dtype (the reference's do too).  Clients
-    train without rematerialization whatever the config's ``remat``: a
-    client's batch (``local_batch`` x ``seq_len`` tokens) keeps small
-    activations, which a recomputed forward would not save, and it would
-    more than double a round (smollm-135m at full width, 32 clients of
-    2 x 16 tokens, on an H100: 10.3-11.4 s a round with ``"block"``,
-    4.1-4.5 s without).  The tile
-    grid is ``block`` or ``auto_tile_grid(params, target_tiles)``, and the
-    wireless model prices the real model (``model_bits``).
+    dtype whatever the run's dtype (the reference's do too).  ``config``
+    is the model as given, its ``remat`` included, as the reference's:
+    the FL step (``federated.trainer.make_fl_train_step``) trains it so.
+    ``client_task`` is the one place that decides remat for the fleet
+    engine's clients, which train without it: a client's batch
+    (``local_batch`` x ``seq_len`` tokens) keeps small activations, which
+    a recomputed forward would not save, and it would more than double a
+    round (smollm-135m at full width, 32 clients of 2 x 16 tokens, on an
+    H100: 10.3-11.4 s a round with ``"block"``, 4.1-4.5 s without).  The
+    tile grid is ``block`` or ``auto_tile_grid(params, target_tiles)``,
+    and the wireless model prices the real model (``model_bits``).
     """
 
     arch_name: str = "smollm-135m"
@@ -322,9 +330,14 @@ class TransformerTask(FleetTask):
         return self.dirichlet_alpha is not None
 
     def config(self):
-        cfg = self.arch if self.arch is not None \
+        return self.arch if self.arch is not None \
             else _default_arch(self.arch_name)
-        return cfg.replace(remat="none")
+
+    def client_task(self) -> "TransformerTask":
+        cfg = self.config()
+        if cfg.remat == "none":
+            return self
+        return dataclasses.replace(self, arch=cfg.replace(remat="none"))
 
     def build(self, generator, dtype, device, num_clients=0):
         from repro_torch.data.tokens import TokenStream

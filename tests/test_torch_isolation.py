@@ -54,5 +54,9 @@ def test_package_covers_the_slice_modules():
                 "data.tokens",
                 "federated", "federated.client", "federated.server",
                 "federated.system", "federated.trainer", "optimizers",
-                "launch", "launch.steps", "launch.mesh", "launch.train"}
+                "launch", "launch.steps", "launch.mesh", "launch.train",
+                "examples", "examples.quickstart",
+                "examples.tradeoff_playground", "examples.train_federated",
+                "examples.fleet_sim", "examples.pruned_llm_federated",
+                "examples.serve_pruned"}
     assert {f"repro_torch.{m}" for m in expected} <= set(_modules())
