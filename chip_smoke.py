@@ -41,10 +41,15 @@ Phases (any failure exits non-zero and prints no result line):
                xlstm-125m's heads (4 of 384, 4 of 192) on (2, 256) from
                zero and drawn states: h and every input's gradient
                against autograd of the plain version within 1e-4 of
-               max(1, |plain|), rerun bitwise; at 17a's host-step shape
+               max(1, |plain|), rerun bitwise; the same on a ragged
+               case, (3, 100) at head dims 72 (mLSTM) and 44 (sLSTM); the
+               sLSTM forward's cluster (CTAs, shared memory a CTA,
+               cudaOccupancyMaxActiveClusters); at 17a's host-step shape
                (4, 4096) the forward against the plain forward and rerun
                bitwise, and each op's ms (CUDA events over back-to-back
-               launches), call ms (a call alone) and bound, with the
+               launches), call ms (a call alone), the mLSTM backward's
+               ms by launch (CUDA events between its three launches,
+               ``by_kernel``) and bound, with the
                plain forward's ms there and the plain backward's at (2,
                256) (``plain_shape``, ``small_ms``);
   4. main    — 5 synchronous fleet rounds: 10,000 clients (100 x 100 cells),
@@ -1214,9 +1219,14 @@ def check_prefill(card: str) -> dict:
 SCAN_B, SCAN_S = 2, 256
 XHOST_B, XHOST_S, XHOST_STEPS = 4, 4096, 3
 SCAN_HEADS = {"mlstm": (4, 384), "slstm": (4, 192)}
+# a ragged case a scan: head dims that fill no lane group, warp or
+# cluster evenly, at a length that ends mid-chunk
+RAGGED_B, RAGGED_S = 3, 100
+RAGGED_HEADS = {"mlstm": (4, 72), "slstm": (4, 44)}
 # each op's device kernels (profiler names)
 SCAN_KERNELS = {"mlstm_scan": ("mlstm_fwd_kernel",),
-                "mlstm_scan_bwd": ("mlstm_bwd_mat_kernel",
+                "mlstm_scan_bwd": ("mlstm_bwd_chunk_kernel",
+                                   "mlstm_bwd_carry_kernel",
                                    "mlstm_bwd_gate_kernel"),
                 "slstm_scan": ("slstm_fwd_kernel",),
                 "slstm_scan_bwd": ("slstm_bwd_kernel",)}
@@ -1226,14 +1236,15 @@ XSCAN_PER_STEP = {"mlstm_scan": 12, "mlstm_scan_bwd": 6, "slstm_scan": 12,
                   "slstm_scan_bwd": 6}
 
 
-def scan_inputs(kind: str, b: int, s: int, seed: int, state: bool) -> list:
-    """The scan op's inputs on the card from a seed, at xlstm-125m's heads:
-    gates spread wide (N(0, 9) pre-activations, reaching both sides of
-    the stabiliser's max), and the states zero (the model's start; the
-    sLSTM's n at its 1e-6 floor) or drawn."""
+def scan_inputs(kind: str, b: int, s: int, seed: int, state: bool,
+                heads: tuple = None) -> list:
+    """The scan op's inputs on the card from a seed, at xlstm-125m's heads
+    (or ``heads``, (H, hd)): gates spread wide (N(0, 9) pre-activations,
+    reaching both sides of the stabiliser's max), and the states zero (the
+    model's start; the sLSTM's n at its 1e-6 floor) or drawn."""
     import torch
     g = torch.Generator(device=CARD).manual_seed(seed)
-    h, hd = SCAN_HEADS[kind]
+    h, hd = heads or SCAN_HEADS[kind]
 
     def r(*shape):
         return torch.randn(shape, generator=g, device=CARD)
@@ -1309,6 +1320,9 @@ def time_scan(kind: str, ins) -> dict:
             call_ms=sum(timed_once(lambda: op(*args))[1]
                         for _ in range(iters)) / iters,
             bound_ms=bound, bound_by=bound_by)
+        if name == "mlstm_scan_bwd":
+            from repro_torch.kernels import mlstm_scan as MS
+            res[name]["by_kernel"] = MS.backward_launch_ms(args, iters)
     return res
 
 
@@ -1375,6 +1389,33 @@ def check_scans(card: str) -> list:
             if max(errs) > TOL or not same:
                 raise AssertionError(f"{kind}_scan disagrees with its plain "
                                      f"version or its rerun")
+        ins = scan_inputs(kind, RAGGED_B, RAGGED_S, 45, True,
+                          RAGGED_HEADS[kind])
+        h, _ = timed_once(lambda: plain(*ins))
+        dh = torch.randn_like(h)
+        got, again = scan_grads(entry, ins, dh), scan_grads(entry, ins, dh)
+        want = scan_grads(plain, ins, dh)
+        errs = []
+        for a, w in zip(got, want):
+            diff = float((a - w).abs().max())
+            errs.append(diff / max(float(w.abs().max()), 1.0))
+            worst = max(worst, diff)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"  {kind}_scan ragged (B={RAGGED_B}, S={RAGGED_S}, heads "
+            f"{RAGGED_HEADS[kind]}, drawn states): h and grads err / max(1, "
+            f"|plain|) {', '.join(f'{e:.1e}' for e in errs)} (tol {TOL}); "
+            f"rerun {'bitwise' if same else 'DIFFERENT'} [{card}]")
+        if max(errs) > TOL or not same:
+            raise AssertionError(f"{kind}_scan's ragged case disagrees with "
+                                 f"its plain version or its rerun")
+        if kind == "slstm":
+            for hd in (SCAN_HEADS[kind][1], RAGGED_HEADS[kind][1]):
+                info = SS.cluster_info(hd)
+                log(f"  slstm_fwd_kernel at hd = {hd}: a cluster of "
+                    f"{info['cluster']} CTAs a (b, h), {info['smem_bytes']} "
+                    f"B of shared memory a CTA, cudaOccupancyMaxActiveClusters"
+                    f" {info['max_active_clusters']} [{card}]")
+        ins = scan_inputs(kind, SCAN_B, SCAN_S, 42, True)
         small = time_scan(kind, ins)
         ins = scan_inputs(kind, XHOST_B, XHOST_S, 44, False)
         got = entry(*ins)
@@ -1431,8 +1472,11 @@ def check_scans(card: str) -> list:
                 small_bound_ms=small[name]["bound_ms"],
                 small_plain_ms=plain_small[direction], library_ms=None)
             rows.append(row)
+            split = "".join(f"; {k} {v:.3f} ms" for k, v in
+                            t.get("by_kernel", {}).items())
             log(f"  {name} (B={XHOST_B}, S={XHOST_S}): {t['ms']:.3f} ms a "
-                f"launch (CUDA events; {t['call_ms']:.3f} ms a call alone), "
+                f"call (CUDA events; {t['call_ms']:.3f} ms a call alone"
+                f"{split}), "
                 f"bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']}); at (B={SCAN_B}, S={SCAN_S}) "
                 f"{small[name]['ms']:.3f} ms (bound "

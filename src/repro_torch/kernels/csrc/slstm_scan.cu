@@ -16,13 +16,31 @@
 // What bounds it.  The recurrence is nonlinear, so the positions are a
 // chain of four hd x hd matrix-vector products: 8 hd^2 flops a step, and
 // the four matrices (576 KB a head at hd = 192, float32) do not fit one
-// SM's shared memory, so each step reads them from L2.  This first design
-// is the simple one: one CTA per (b, h), a thread per (gate, column) of
-// the products (4 hd threads, hd <= 256) reading its column of R with the
-// other threads of its warp (128-byte rows), h_{t-1} in shared memory, and
-// a thread per dim for the cell; two barriers a step.  Its time is the L2
-// reads of R, S times.  (A cluster of CTAs that split R and exchange h
-// through distributed shared memory is the faster design.)
+// SM's shared memory; read from L2 at every step they would set the time
+// at one SM's L2 port.
+//
+// Forward: a thread-block cluster of kCluster = 8 CTAs per (b, h).  CTA r
+// owns the dims [r chunk, (r + 1) chunk), chunk = ceil(hd / kCluster) (the
+// last CTAs fewer, or none, where kCluster does not divide hd), for all
+// four gates: its 4 hd chunk entries of R (72 KB at hd = 192) go into its
+// shared memory once a launch, and the first kRegK = 64 of each warp's k
+// range into its lanes' registers, so no R is read from L2 inside the step
+// loop.  Each CTA keeps the whole h_{t-1} in shared memory, twice (even and
+// odd steps).  A step: 4 kSplit warps form the products of its columns
+// with h_{t-1} (warp (g, s) over the s-th part of k, a lane a column,
+// h_{t-1} as float4 broadcasts; where the parts split evenly, as at hd =
+// 192, without a branch, every block's loads issued before its products);
+// one CTA barrier; a thread per owned dim adds the parts in a fixed order,
+// runs the cell, and sends its h_t to every CTA of the cluster with
+// st.async, each CTA's mbarrier counting the bytes of h it expects a
+// step.  So a step waits only for its own inputs: no cluster barrier and
+// no fence on the outputs' global stores.  With h double-buffered, a peer
+// writes buffer (t + 1) & 1 only after it has this CTA's h_t, sent after
+// this CTA's last read of that buffer.  Two CTAs share a multiprocessor
+// (128 registers a thread; 30 clusters fit an H100 at hd = 192).  What
+// bounds it now (scripts/slstm_phases.py): each step's latency, ~1,170
+// cycles of products (shared-memory reads of R and h and their latency)
+// and ~830 of cell, sends and stores.
 //
 // Backward (reverse in time).  A thread per dim carries dc, dn, dm and the
 // recurrent dh; from the forward's saved pre-activations, c, n and m it
@@ -34,13 +52,14 @@
 // matrix product, left to the caller.  Every sum runs in a fixed order, so
 // reruns are bitwise.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxHd = 256;           // 4 hd threads a CTA
+constexpr int kMaxHd = 256;           // the backward's 4 hd threads a CTA
 
 struct Args {
   const float *x, *R, *c0, *n0, *m0, *h0;
@@ -59,10 +78,10 @@ __device__ __forceinline__ float sigmoid(float x) {
 }
 
 // sum_k vec[k] * M[k * hd] over k < hd: column `M` of a row-major hd x hd
-// matrix against a vector in shared memory.  The column's loads go out
-// kBatch at a time before their products (the L2's latency, not its
-// bandwidth, would set the time with a few loads in flight); four chains,
-// k mod 4, added in a fixed order.
+// matrix against a vector in shared memory (the backward's products with
+// R^T, read from L2).  The column's loads go out kBatch at a time before
+// their products (the L2's latency, not its bandwidth, would set the time
+// with a few loads in flight); four chains, k mod 4, added in a fixed order.
 constexpr int kBatch = 16;
 
 __device__ __forceinline__ float column_dot(const float* __restrict__ M,
@@ -81,59 +100,257 @@ __device__ __forceinline__ float column_dot(const float* __restrict__ M,
   return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
-__global__ void __launch_bounds__(4 * kMaxHd) slstm_fwd_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int hd = a.hd, tid = threadIdx.x;
-  float* hs = smem;              // h_{t-1}, hd
-  float* pre_s = smem + hd;      // this step's pre-activations, 4 hd
-  const int bh = blockIdx.x, b = bh / a.H, hh = bh % a.H;
-  const bool mat = tid < 4 * hd, cell = tid < hd;
-  const int g = tid / hd, col = tid - g * hd;
-  const float* Rcol = a.R + (static_cast<size_t>(hh) * 4 + (mat ? g : 0))
-                                * hd * hd + col;
-  const size_t st = static_cast<size_t>(bh) * hd + tid;   // state index
+// The forward's cluster: kCluster CTAs a (b, h) (8, the portable maximum),
+// each of 4 kSplit warps (a gate and a part of k each).  A lane keeps the
+// first kRegK entries of its column's part of R in registers, the rest is
+// read from shared memory each step (kRegK a multiple of 16).
+constexpr int kCluster = 8;
+constexpr int kSplit = 2;
+constexpr int kRegK = 64;
+constexpr int kFwdThreads = 4 * kSplit * 32;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `addr` (this CTA's shared memory) as CTA `rank` of the cluster sees it
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also expects `bytes` more of this phase's transactions
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// the wait acquires at cluster scope: the peers' st.async complete_tx
+// releases at cluster scope
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// value into a peer's shared memory `dst`, counted on the peer's mbarrier
+// `bar` (shared::cluster addresses)
+__device__ __forceinline__ void st_async(uint32_t dst, float value,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" :: "r"(dst), "f"(value), "r"(bar) : "memory");
+}
+
+// The forward's shared memory: two mbarriers (16 bytes), then in floats
+// R's columns (4 hd chunk), h twice (2 hpad, hpad = hd rounded up to 4),
+// the products' parts (kSplit 4 chunk).
+struct FwdSmem {
+  int chunk, hpad, r_off, h_off, part_off, floats;
+  __host__ __device__ explicit FwdSmem(int hd) {
+    chunk = (hd + kCluster - 1) / kCluster;
+    hpad = (hd + 3) & ~3;
+    r_off = 4;                                // after the mbarriers
+    h_off = r_off + 4 * hd * chunk;
+    h_off = (h_off + 3) & ~3;                 // float4 reads of h
+    part_off = h_off + 2 * hpad;
+    floats = part_off + kSplit * 4 * chunk;
+  }
+};
+
+__global__ void __launch_bounds__(kFwdThreads, 2) slstm_fwd_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int hd = a.hd, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const FwdSmem L(hd);
+  const int chunk = L.chunk, hpad = L.hpad;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / kCluster, b = bh / a.H, hh = bh % a.H;
+  const int v0 = rank * chunk, nd = max(0, min(chunk, hd - v0));
+  const uint32_t bar0 = smem_addr(smem);    // buffer i's mbarrier at + 8 i
+  float* Rs = smem + L.r_off;      // Rs[(g hd + k) chunk + j] = R[h][g][k][v0 + j]
+  float* hbuf = smem + L.h_off;    // h_{t-1} at (t & 1) hpad
+  float* part = smem + L.part_off; // part[(s 4 + g) chunk + j]
+  const float* Rh = a.R + static_cast<size_t>(hh) * 4 * hd * hd;
+  for (int i = tid; i < 4 * hd * chunk; i += kFwdThreads) {
+    const int j = i % chunk, gk = i / chunk;
+    Rs[i] = j < nd ? Rh[static_cast<size_t>(gk) * hd + v0 + j] : 0.f;
+  }
+  const float* h0 = a.h0 + static_cast<size_t>(bh) * hd;
+  for (int k = tid; k < 2 * hpad; k += kFwdThreads)
+    hbuf[k] = k < hd ? h0[k] : 0.f;
+  if (tid == 0) {
+    // buffer i receives hd floats a phase, from the whole cluster
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    mbar_expect(bar0, 4 * hd);
+    mbar_expect(bar0 + 8, 4 * hd);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the thread of owned dim `tid`: its state and its x one step ahead
+  const bool cell = tid < nd;
+  const int v = v0 + tid;
   float c = 0.f, n = 0.f, m = 0.f;
+  float xn[4] = {0.f, 0.f, 0.f, 0.f};
+  const size_t xrow = static_cast<size_t>(a.H) * 4 * hd;   // a position
+  const size_t xb = (static_cast<size_t>(b) * a.S * a.H + hh) * 4 * hd + v;
   if (cell) {
+    const size_t st = static_cast<size_t>(bh) * hd + v;
     c = a.c0[st];
     n = a.n0[st];
     m = a.m0[st];
-    hs[tid] = a.h0[st];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) xn[q] = a.x[xb + q * hd];
   }
-  const size_t xrow = static_cast<size_t>(a.H) * 4 * hd;   // a position
-  const float* x = a.x + (static_cast<size_t>(b) * a.S * a.H + hh) * 4 * hd;
-  float xn = mat ? x[tid] : 0.f;
-  __syncthreads();
+  // warp (g, s): gate g over k in [kb, ke); kb a multiple of 4; the lane
+  // of column j = lane (< nd) holds R[kb + i][j], i < kRegK, in registers
+  // (zero past ke)
+  const int g = warp & 3, s = warp >> 2;
+  const int kpart = (((hd + kSplit - 1) / kSplit) + 3) & ~3;
+  const int kb = min(hd, s * kpart), ke = min(hd, kb + kpart);
+  const int kr = min(ke, kb + kRegK);        // [kr, ke) from shared memory
+  // every warp's k-part fills its registers and leaves whole blocks of 16
+  // to shared memory, and a lane has one column (hd = 192: 64 + 2 x 16)
+  const bool fast = kpart >= kRegK && (kpart - kRegK) % 16 == 0 &&
+                    hd % kpart == 0 && hd / kpart == kSplit && chunk <= 32;
+  cluster.sync();                  // every CTA's buffers and mbarriers ready
+  float rr[kRegK];
+  {
+    const float* Rg = Rs + static_cast<size_t>(g) * hd * chunk + lane;
+#pragma unroll
+    for (int i = 0; i < kRegK; ++i)
+      rr[i] = (lane < nd && kb + i < ke) ? Rg[(kb + i) * chunk] : 0.f;
+  }
   for (int t = 0; t < a.S; ++t) {
-    const float xv = xn;
-    if (mat && t + 1 < a.S) xn = x[(t + 1) * xrow + tid];
-    if (mat) {
-      const float p = xv + column_dot(Rcol, hs, hd);
-      pre_s[tid] = p;
-      a.pre[t * xrow + (static_cast<size_t>(b) * a.S * a.H + hh) * 4 * hd
-            + tid] = p;
+    const float* hcur = hbuf + (t & 1) * hpad;
+    if (t > 0) {
+      // h_{t-1} has come from every CTA: the ((t - 1) / 2)-th phase of
+      // buffer t & 1.  Re-armed for its next phase, whose values the
+      // peers send only after this CTA's h_t, so never before this wait.
+      const uint32_t bar = bar0 + 8 * (t & 1);
+      mbar_wait(bar, ((t - 1) >> 1) & 1);
+      if (tid == 0) mbar_expect(bar, 4 * hd);
+    }
+    if (fast && lane < nd) {
+      // the whole k-part without a branch: registers, then shared memory
+      // in blocks of 16, each block's loads issued before its products
+      const float* Rg = Rs + static_cast<size_t>(g) * hd * chunk + lane;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kRegK; i += 16) {
+        float4 hv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          hv[q] = *reinterpret_cast<const float4*>(hcur + kb + i + 4 * q);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[0] = fmaf(hv[q].x, rr[i + 4 * q], acc[0]);
+          acc[1] = fmaf(hv[q].y, rr[i + 4 * q + 1], acc[1]);
+          acc[2] = fmaf(hv[q].z, rr[i + 4 * q + 2], acc[2]);
+          acc[3] = fmaf(hv[q].w, rr[i + 4 * q + 3], acc[3]);
+        }
+      }
+#pragma unroll 1
+      for (int k = kr; k < ke; k += 16) {
+        float4 hv[4];
+        float rv[16];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          hv[q] = *reinterpret_cast<const float4*>(hcur + k + 4 * q);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) rv[q] = Rg[(k + q) * chunk];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[0] = fmaf(hv[q].x, rv[4 * q], acc[0]);
+          acc[1] = fmaf(hv[q].y, rv[4 * q + 1], acc[1]);
+          acc[2] = fmaf(hv[q].z, rv[4 * q + 2], acc[2]);
+          acc[3] = fmaf(hv[q].w, rv[4 * q + 3], acc[3]);
+        }
+      }
+      part[(s * 4 + g) * chunk + lane] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    }
+    for (int j = lane; !fast && j < nd; j += 32) {
+      const float* Rg = Rs + static_cast<size_t>(g) * hd * chunk + j;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      int k = kb;
+      if (j == lane) {             // the first kRegK from registers
+#pragma unroll
+        for (int i = 0; i < kRegK; i += 4) {
+          if (kb + i >= kr) break;
+          const float4 hv = *reinterpret_cast<const float4*>(hcur + kb + i);
+          acc[0] = fmaf(hv.x, rr[i], acc[0]);
+          acc[1] = fmaf(hv.y, rr[i + 1], acc[1]);
+          acc[2] = fmaf(hv.z, rr[i + 2], acc[2]);
+          acc[3] = fmaf(hv.w, rr[i + 3], acc[3]);
+        }
+        k = kr;
+      }
+#pragma unroll 4
+      for (; k + 4 <= ke; k += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(hcur + k);
+        acc[0] = fmaf(hv.x, Rg[(k + 0) * chunk], acc[0]);
+        acc[1] = fmaf(hv.y, Rg[(k + 1) * chunk], acc[1]);
+        acc[2] = fmaf(hv.z, Rg[(k + 2) * chunk], acc[2]);
+        acc[3] = fmaf(hv.w, Rg[(k + 3) * chunk], acc[3]);
+      }
+      for (; k < ke; ++k) acc[0] = fmaf(hcur[k], Rg[k * chunk], acc[0]);
+      part[(s * 4 + g) * chunk + j] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
     }
     __syncthreads();
     if (cell) {
-      const float zp = pre_s[tid], ip = pre_s[hd + tid];
-      const float fp = pre_s[2 * hd + tid], op = pre_s[3 * hd + tid];
-      const float z = tanhf(zp), o = sigmoid(op);
-      const float aa = log_sigmoid(fp) + m;
-      const float mn = fmaxf(aa, ip);
-      const float fe = expf(aa - mn), ie = expf(ip - mn);
+      float p[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float sum = part[q * chunk + tid];
+#pragma unroll
+        for (int r = 1; r < kSplit; ++r) sum += part[(r * 4 + q) * chunk + tid];
+        p[q] = xn[q] + sum;
+      }
+      const size_t pb = xb + t * xrow;
+      if (t + 1 < a.S) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xn[q] = a.x[pb + xrow + q * hd];
+      }
+      const float z = tanhf(p[0]), o = sigmoid(p[3]);
+      const float aa = log_sigmoid(p[2]) + m;
+      const float mn = fmaxf(aa, p[1]);
+      const float fe = expf(aa - mn), ie = expf(p[1] - mn);
       c = fe * c + ie * z;
       n = fmaxf(fe * n + ie, 1e-6f);
       m = mn;
       const float hv = o * c / n;
-      hs[tid] = hv;
+      if (t + 1 < a.S) {
+        const uint32_t dst = smem_addr(hbuf + ((t + 1) & 1) * hpad + v);
+        const uint32_t bar = bar0 + 8 * ((t + 1) & 1);
+#pragma unroll
+        for (int r = 0; r < kCluster; ++r)
+          st_async(peer_addr(dst, r), hv, peer_addr(bar, r));
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a.pre[pb + q * hd] = p[q];
       const size_t o_ = ((static_cast<size_t>(b) * a.S + t) * a.H + hh) * hd
-                        + tid;
+                        + v;
       a.h[o_] = hv;
       a.c_all[o_] = c;
       a.n_all[o_] = n;
       a.m_all[o_] = m;
     }
-    __syncthreads();
   }
+  cluster.sync();                  // no CTA leaves while a peer may write
 }
 
 // One position's saved values for the thread of dim `tid`.
@@ -239,6 +456,28 @@ __global__ void __launch_bounds__(4 * kMaxHd) slstm_bwd_kernel(Args a) {
 
 int threads_for(int hd) { return (4 * hd + 31) / 32 * 32; }
 
+// The forward's cluster launch over `clusters` (b, h): the dynamic
+// shared-memory limit raised above 48 KB, the cluster's shape an attribute.
+int fwd_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
+               int clusters, int hd, cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(FwdSmem(hd).floats) * sizeof(float);
+  const cudaError_t e = cudaFuncSetAttribute(
+      slstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cfg.gridDim = dim3(clusters * kCluster);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -261,9 +500,30 @@ int slstm_scan_fwd(const float* x, const float* R, const float* c0,
   a.x = x; a.R = R; a.c0 = c0; a.n0 = n0; a.m0 = m0; a.h0 = h0;
   a.h = h; a.c_all = c_all; a.n_all = n_all; a.m_all = m_all; a.pre = pre;
   a.B = B; a.S = S; a.H = H; a.hd = hd;
-  slstm_fwd_kernel<<<B * H, threads_for(hd), 5 * hd * sizeof(float),
-                     static_cast<cudaStream_t>(stream)>>>(a);
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  const int err = fwd_config(cfg, attr, B * H, hd,
+                             static_cast<cudaStream_t>(stream));
+  if (err != 0) return err;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, slstm_fwd_kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's launch shape at head dim hd: CTAs a cluster, shared
+// memory a CTA (bytes), and how many clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters); returns a CUDA error code.
+int slstm_scan_fwd_cluster(int hd, int* cluster, int* smem_bytes,
+                           int* max_clusters) {
+  if (hd <= 0 || hd > kMaxHd) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  const int err = fwd_config(cfg, attr, 1, hd, nullptr);
+  if (err != 0) return err;
+  *cluster = kCluster;
+  *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      max_clusters, slstm_fwd_kernel, &cfg));
 }
 
 // dh (B, S, H, hd); RT (H, 4, hd, hd), RT[h][g][v][k] = R[h][g][k][v]; the

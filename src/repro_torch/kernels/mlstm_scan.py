@@ -18,8 +18,9 @@ C0 (B, H, hd, hd), n0 (B, H, hd), m0 (B, H).  ``n_all``, ``m_all`` and
 ceil(S / 32), hd, hd) the state C at the start of every 32 positions (C0
 first): what the backward needs.  Each op has a CPU impl (the plain version: the
 stepped cell, and autograd of it recomputed under ``enable_grad``), a CUDA
-impl (``csrc/mlstm_scan.cu``: one launch forward, two backward, counted in
-``mlstm_scan.launches`` and ``mlstm_scan_bwd.launches``), a Meta impl
+impl (``csrc/mlstm_scan.cu``: one launch forward, three backward, chunkwise
+over the saved states, each op call counted once in ``mlstm_scan.launches``
+and ``mlstm_scan_bwd.launches``), a Meta impl
 (shapes, for ``FakeTensorMode``), a batching rule that folds a vmapped dim
 into the batch rows, and a flop formula for ``launch.cost``.
 ``mlstm_scan`` is differentiable, also under ``torch.func`` transforms.
@@ -35,8 +36,8 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
-__all__ = ["mlstm_cell", "mlstm_scan", "mlstm_scan_bwd", "mlstm_scan_plain",
-           "softplus"]
+__all__ = ["backward_launch_ms", "mlstm_cell", "mlstm_scan", "mlstm_scan_bwd",
+           "mlstm_scan_plain", "softplus"]
 
 MAX_HEAD_DIM = 384          # the kernel's 12 elements a lane
 SNAP_EVERY = 32             # positions between saved C states (kChunk)
@@ -145,7 +146,36 @@ def _lib() -> ctypes.CDLL:
         lib.mlstm_scan_bwd.argtypes = [ctypes.c_void_p] * 23 \
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         lib.mlstm_scan_bwd.restype = ctypes.c_int
+        lib.mlstm_scan_bwd_scratch.argtypes = [ctypes.c_int] * 4
+        lib.mlstm_scan_bwd_scratch.restype = ctypes.c_longlong
+        lib.mlstm_scan_bwd_time_launches.argtypes = [ctypes.c_int]
+        lib.mlstm_scan_bwd_launch_ms.argtypes = [
+            ctypes.POINTER(ctypes.c_float)]
     return lib
+
+
+BWD_KERNELS = ("mlstm_bwd_chunk_kernel", "mlstm_bwd_carry_kernel",
+               "mlstm_bwd_gate_kernel")
+
+
+def backward_launch_ms(args, calls: int = 3) -> dict:
+    """ms of each of the backward kernel's three launches (CUDA events
+    recorded between them), the mean over ``calls`` calls of the op on
+    ``args`` (its arguments on the card) after a warm one."""
+    lib = _lib()
+    op = torch.ops.repro_torch.mlstm_scan_bwd
+    op(*args)
+    ms, total = (ctypes.c_float * 3)(), [0.0, 0.0, 0.0]
+    build.check(lib, lib.mlstm_scan_bwd_time_launches(1), "mlstm_scan_bwd")
+    try:
+        for _ in range(calls):
+            op(*args)
+            build.check(lib, lib.mlstm_scan_bwd_launch_ms(ms),
+                        "mlstm_scan_bwd timing")
+            total = [t + m for t, m in zip(total, ms)]
+    finally:
+        lib.mlstm_scan_bwd_time_launches(0)
+    return {k: t / calls for k, t in zip(BWD_KERNELS, total)}
 
 
 def _dims(q) -> tuple:
@@ -215,12 +245,14 @@ def _bwd_cuda(dh, q, k, v, i_pre, f_pre, C0, n0, m0, h, n_all, m_all, d_all,
     out = tuple(torch.empty_like(ops[i]) for i in (1, 2, 3, 4, 5, 6, 7, 8))
     if ops[0].numel() == 0:
         return tuple(o.zero_() for o in out)
-    # each anchor's parts, one a warp of 4 rows (the dv pass's scratch)
-    part = dh.new_empty((b * hh * C_snap.shape[2] * (-(-hd // 4)),))
     lib = _lib()
+    # the chunks' scalars and the carry's per-tile parts: 6 + 3 ceil(hd /
+    # 96) floats a position and head (4.8 MB at (4, 4096, 4) of 384)
+    scratch = dh.new_empty((lib.mlstm_scan_bwd_scratch(b, s, hh, hd),))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.mlstm_scan_bwd(*map(build.ptr, ops + list(out) + [part]), b,
-                              s, hh, hd, hd ** -0.5, ctypes.c_void_p(stream))
+    code = lib.mlstm_scan_bwd(*map(build.ptr, ops + list(out) + [scratch]),
+                              b, s, hh, hd, hd ** -0.5,
+                              ctypes.c_void_p(stream))
     build.check(lib, code, "mlstm_scan_bwd")
     mlstm_scan_bwd.launches += 1
     return out

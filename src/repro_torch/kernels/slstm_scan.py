@@ -19,7 +19,9 @@ R's gradient, sum over rows and positions of h_{t-1}^T dx, is a plain
 product that ``slstm_scan``'s backward forms outside the op.  Each op has
 a CPU impl (the plain version: the stepped cell, and autograd of it
 recomputed under ``enable_grad``), a CUDA impl (``csrc/slstm_scan.cu``,
-one launch each, counted in ``slstm_scan.launches`` and
+one launch each, the forward a thread-block cluster a (b, h) with R on
+chip in its CTAs' shared memory and registers, counted in
+``slstm_scan.launches`` and
 ``slstm_scan_bwd.launches``), a Meta impl, a batching rule and a flop
 formula.  A vmapped dim folds into the batch rows, or, where R is vmapped
 too (per-client weights), into the heads.
@@ -37,9 +39,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mlstm_scan import (_LIB, _card_operands, fold_rows,
                                             softplus, unfold_rows)
 
-__all__ = ["slstm_cell", "slstm_scan", "slstm_scan_bwd", "slstm_scan_plain"]
+__all__ = ["cluster_info", "slstm_cell", "slstm_scan", "slstm_scan_bwd",
+           "slstm_scan_plain"]
 
-MAX_HEAD_DIM = 256          # 4 hd threads a CTA
+MAX_HEAD_DIM = 256          # the backward's 4 hd threads a CTA
 GATES = ("r_z", "r_i", "r_f", "r_o")
 
 _LIB.define("slstm_scan(Tensor x, Tensor R, Tensor c0, Tensor n0, Tensor m0, "
@@ -119,7 +122,23 @@ def _lib() -> ctypes.CDLL:
         lib.slstm_scan_bwd.argtypes = [ctypes.c_void_p] * 14 \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.slstm_scan_bwd.restype = ctypes.c_int
+        lib.slstm_scan_fwd_cluster.argtypes = [ctypes.c_int] \
+            + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.slstm_scan_fwd_cluster.restype = ctypes.c_int
     return lib
+
+
+def cluster_info(hd: int) -> dict:
+    """The forward kernel's launch at head dim ``hd`` on the current card:
+    CTAs a cluster (a (b, h) each), dynamic shared memory a CTA in bytes,
+    and ``cudaOccupancyMaxActiveClusters``, the clusters the card runs at
+    once."""
+    lib = _lib()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    build.check(lib, lib.slstm_scan_fwd_cluster(
+        hd, *map(ctypes.byref, vals)), "slstm_scan cluster query")
+    return dict(zip(("cluster", "smem_bytes", "max_active_clusters"),
+                    (v.value for v in vals)))
 
 
 def _dims(x) -> tuple:
